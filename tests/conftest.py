@@ -12,3 +12,9 @@ if "xla_force_host_platform_device_count" not in _FLAGS:
     os.environ["XLA_FLAGS"] = (
         _FLAGS + " --xla_force_host_platform_device_count=8"
     ).strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels of repro_torch); "
+        "skipped where torch.cuda.is_available() is False")
