@@ -105,8 +105,12 @@ def lstm_branch(p: dict, kpms: torch.Tensor) -> torch.Tensor:
     return lstm_hidden(kpms, p["wx"], p["wh"], p["b"]) @ p["proj"]
 
 
-def cnn_branch(p: dict, iq: torch.Tensor) -> torch.Tensor:
-    """iq: (B, 2, S, 14) -> (B, hidden), inference (no dropout).
+def conv_trunk(p: dict, iq: torch.Tensor):
+    """The conv/pool trunk of the CNN branch, in byte-capped row passes:
+    yields, pass by pass, the (rows, cnn_flat) f32 input of the ``fc``
+    layer for consecutive rows of ``iq`` (B, 2, S, 14). Shared by the fp32
+    ``cnn_branch`` and the int8 serving forward, which runs ``fc``
+    quantized.
 
     The reference convolves NHWC with HWIO kernels; NCHW with the kernels
     permuted to OIHW is the same sum. "SAME" 3x3 at stride 1 is padding 1;
@@ -117,14 +121,21 @@ def cnn_branch(p: dict, iq: torch.Tensor) -> torch.Tensor:
     step = max(1, CNN_CHUNK_BYTES // per_row)
     w1 = p["conv1"].permute(3, 2, 0, 1)
     w2 = p["conv2"].permute(3, 2, 0, 1)
-    outs = []
     for r0 in range(0, iq.shape[0], step):
         x = iq[r0:r0 + step]
         for w, b in ((w1, p["b1"]), (w2, p["b2"])):
             x = F.max_pool2d(F.relu(F.conv2d(x, w, b, padding=1)), 2)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        outs.append(F.relu(x @ p["fc"] + p["fcb"]))
+        yield x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def cat_rows(outs: list) -> torch.Tensor:
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def cnn_branch(p: dict, iq: torch.Tensor) -> torch.Tensor:
+    """iq: (B, 2, S, 14) -> (B, hidden), inference (no dropout)."""
+    return cat_rows([F.relu(x @ p["fc"] + p["fcb"])
+                     for x in conv_trunk(p, iq)])
 
 
 @contextlib.contextmanager
@@ -146,7 +157,18 @@ def full_f32(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _as_f32(x, dev: torch.device) -> torch.Tensor:
+def check_params_device(params: dict, dev: torch.device) -> None:
+    """Raise unless every leaf of ``params`` (a tensor, or a tuple of
+    tensors for a quantized weight) lies on ``dev``'s kind of device."""
+    for group in params.values():
+        for name, leaf in group.items():
+            for t in leaf if isinstance(leaf, tuple) else (leaf,):
+                if t.device.type != dev.type:
+                    raise ValueError(f"parameter {name} is on {t.device}, "
+                                     f"the forward runs on {dev}")
+
+
+def as_f32(x, dev: torch.device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
     return torch.as_tensor(x).to(device=dev, dtype=F32)
@@ -160,12 +182,8 @@ def estimator_forward(e: EstimatorConfig, params: dict, kpms, iq, alloc, *,
     (B,) may be numpy arrays or tensors; ``params`` must already be on
     ``device``. Inference only."""
     dev = resolve_device(device)
-    for group in params.values():
-        for name, t in group.items():
-            if t.device.type != dev.type:
-                raise ValueError(f"parameter {name} is on {t.device}, the "
-                                 f"forward runs on {dev}")
-    kpms, iq, alloc = (_as_f32(a, dev) for a in (kpms, iq, alloc))
+    check_params_device(params, dev)
+    kpms, iq, alloc = (as_f32(a, dev) for a in (kpms, iq, alloc))
     with torch.inference_mode(), full_f32(dev):
         v_t = lstm_branch(params["lstm"], kpms)
         v_s = cnn_branch(params["cnn"], iq)

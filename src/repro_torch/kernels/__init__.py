@@ -6,7 +6,10 @@ each wrapper sits its plain PyTorch version: the wrapper runs it for CPU
 tensors, and the tests and ``chip_smoke.py`` hold the kernel to it.
 
   featurize  fused KPM window extraction + normalisation
-  lstm       fused fp32 LSTM-cell scan (the estimator's temporal branch)
+  lstm       fused LSTM-cell scans, fp32 and int8 (the estimator's
+             temporal branch)
+  quant      rowwise symmetric int8 quantization
+  qmm        int8 x int8 -> int32 rowwise-scaled matrix product
 """
-from repro_torch.kernels import featurize, lstm  # noqa: F401
+from repro_torch.kernels import featurize, lstm, qmm, quant  # noqa: F401
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

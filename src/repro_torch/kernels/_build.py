@@ -38,9 +38,17 @@ _SIGNATURES = {
     "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wx, wh, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, q, scale, n, d, stream)
+    "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _P],
+    # (xq, sx, wq, sw, out, part, m, n, k, splits, stream)
+    "repro_qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, wxq, wxs, whq, whs, b, h_out, batch, steps, k, hidden, stream)
+    "repro_lstm_scan_q_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _P],
 }
 
-LAUNCHES = {"featurize": 0, "lstm_scan": 0}
+LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
+            "lstm_scan_q": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -1,19 +1,37 @@
-"""Fused fp32 LSTM scan: the estimator's temporal branch minus its
-output projection.
+"""Fused LSTM scans: the estimator's temporal branch minus its output
+projection, in fp32 and in int8 for serving.
 
 ``lstm_scan`` is the wrapper of the CUDA kernel ``csrc/lstm_scan.cu``;
 ``lstm_scan_ref`` is its plain PyTorch version, which the wrapper runs for
 tensors on the CPU and the tests hold the kernel to. ``lstm_hidden`` is the
 dispatch the estimator calls: ``lstm_hidden(...) @ proj`` is
 ``estimator.model.lstm_branch``.
+
+The int8 serving scan is ``lstm_scan_q`` (kernel ``csrc/lstm_scan_q.cu``),
+``lstm_scan_q_ref`` and the dispatch ``lstm_hidden_q``: the weights come
+pre-quantized rowwise per output channel (``qmm.quantize_weight``, so
+``wxq`` (4H, K) and ``whq`` (4H, H) int8 with (4H, 1) f32 scales), and
+each step quantizes x_t and h per row before two int8 x int8 -> int32
+dots (``qdot_ref``); the gates run in f32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.qmm import int_dot
+from repro_torch.kernels.quant import quantize_ref
 
 F32 = torch.float32
+I8 = torch.int8
+
+
+def _gates(z, c, hidden):
+    """One cell update: gates i, f, g, o with +1.0 on the forget
+    pre-activation -> (h, c)."""
+    i, f, g, o = torch.split(z, hidden, dim=-1)
+    c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
 
 
 def lstm_scan_ref(kpms, wx, wh, b) -> torch.Tensor:
@@ -25,10 +43,27 @@ def lstm_scan_ref(kpms, wx, wh, b) -> torch.Tensor:
     h = torch.zeros((kpms.shape[0], hidden), dtype=F32, device=kpms.device)
     c = torch.zeros_like(h)
     for t in range(kpms.shape[1]):
-        z = kpms[:, t] @ wx + h @ wh + b
-        i, f, g, o = torch.split(z, hidden, dim=-1)
-        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h, c = _gates(kpms[:, t] @ wx + h @ wh + b, c, hidden)
+    return h
+
+
+def qdot_ref(a, wq, ws) -> torch.Tensor:
+    """Dynamic-activation int8 dot: a (B, K) f32, quantized per row, x
+    wq (OUT, K) int8 with per-output scales ws (OUT, 1) -> (B, OUT) f32,
+    scaled as ``acc * sa * ws.T``."""
+    qa, sa = quantize_ref(a)
+    return int_dot(qa, wq).to(F32) * sa * ws.to(F32).T
+
+
+def lstm_scan_q_ref(kpms, wxq, wxs, whq, whs, b) -> torch.Tensor:
+    """int8 serving scan: kpms (B, T, K) -> final h (B, H) f32, with
+    ``z = qdot(x_t, wx) + qdot(h, wh) + b`` each step."""
+    hidden = whq.shape[1]
+    h = torch.zeros((kpms.shape[0], hidden), dtype=F32, device=kpms.device)
+    c = torch.zeros_like(h)
+    for t in range(kpms.shape[1]):
+        z = qdot_ref(kpms[:, t], wxq, wxs) + qdot_ref(h, whq, whs) + b
+        h, c = _gates(z, c, hidden)
     return h
 
 
@@ -87,3 +122,68 @@ def lstm_hidden(kpms, wx, wh, b) -> torch.Tensor:
     windows' device."""
     return lstm_scan(kpms.to(F32).contiguous(), wx.contiguous(),
                      wh.contiguous(), b.contiguous())
+
+
+def _check_q(kpms, wxq, wxs, whq, whs, b):
+    if kpms.dim() != 3:
+        raise ValueError(f"kpms must be (B, T, K), got {tuple(kpms.shape)}")
+    if whq.dim() != 2:
+        raise ValueError(f"whq must be (4H, H), got {tuple(whq.shape)}")
+    k, hidden = kpms.shape[2], whq.shape[1]
+    g = 4 * hidden
+    want = {"kpms": (F32, tuple(kpms.shape)), "wxq": (I8, (g, k)),
+            "wxs": (F32, (g, 1)), "whq": (I8, (g, hidden)),
+            "whs": (F32, (g, 1)), "b": (F32, (g,))}
+    for name, t in (("kpms", kpms), ("wxq", wxq), ("wxs", wxs),
+                    ("whq", whq), ("whs", whs), ("b", b)):
+        dtype, shape = want[name]
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != kpms.device:
+            raise ValueError(f"{name} is on {t.device}, kpms on "
+                             f"{kpms.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def lstm_scan_q(kpms: torch.Tensor, wxq: torch.Tensor, wxs: torch.Tensor,
+                whq: torch.Tensor, whs: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The int8 LSTM kernel: contiguous f32 kpms (B, T, K), int8 wxq
+    (4H, K) and whq (4H, H), f32 scales wxs and whs (4H, 1), f32 b (4H,)
+    -> final h (B, H) f32.
+
+    Tensors on the CPU run ``lstm_scan_q_ref``; on a card the CUDA kernel
+    runs, or this raises."""
+    _check_q(kpms, wxq, wxs, whq, whs, b)
+    if kpms.device.type == "cpu":
+        return lstm_scan_q_ref(kpms, wxq, wxs, whq, whs, b)
+    if kpms.device.type != "cuda":
+        raise ValueError(f"no lstm_scan_q kernel for device {kpms.device}")
+    batch, steps, k = kpms.shape
+    hidden = whq.shape[1]
+    if not (1 <= k <= 16 and 1 <= hidden <= 224):
+        raise ValueError(f"the lstm_scan_q kernel takes 1-16 input features "
+                         f"and hidden sizes 1-224, got {k} and {hidden}")
+    out = torch.empty((batch, hidden), dtype=F32, device=kpms.device)
+    if batch == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(kpms.device):
+        rc = lib.repro_lstm_scan_q_s8(
+            kpms.data_ptr(), wxq.data_ptr(), wxs.data_ptr(), whq.data_ptr(),
+            whs.data_ptr(), b.data_ptr(), out.data_ptr(), batch, steps, k,
+            hidden, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "lstm_scan_q")
+    _build.LAUNCHES["lstm_scan_q"] += 1
+    return out
+
+
+def lstm_hidden_q(kpms, wxq, wxs, whq, whs, b) -> torch.Tensor:
+    """int8 serving: (B, T, K) windows and ``quantize_weight`` pairs ->
+    (B, H) final hidden state, f32, on the windows' device."""
+    return lstm_scan_q(kpms.to(F32).contiguous(), wxq.contiguous(),
+                       wxs.to(F32).contiguous(), whq.contiguous(),
+                       whs.to(F32).contiguous(), b.to(F32).contiguous())

@@ -17,8 +17,9 @@ metrics — as one batched program on the card:
 equivalence reference; both paths give identical split decisions (they
 share ``controller_step``) and identical metrics.
 
-The arguments of later slices (``serving``, ``online``, ``sched``,
-``cell_idx``/``n_cells``, ``churn``/``capacity``, ``quant``,
+``quant="int8"`` serves the estimator through the int8 kernels
+(``estimator.serve``). The arguments of later slices (``serving``,
+``online``, ``sched``, ``cell_idx``/``n_cells``, ``churn``/``capacity``,
 ``telemetry``, a recurrent SSM estimator) raise ``NotImplementedError``
 naming their ``ROADMAP.md`` queue item; none is ignored.
 """
@@ -42,6 +43,8 @@ from repro_torch.core.profiles import SplitProfile
 # the estimator clamp range is part of the PSO sweep config, not ours
 from repro_torch.core.pso import TP_CLIP_MBPS, StackedLookupTable
 from repro_torch.estimator.model import EstimatorConfig
+from repro_torch.estimator.serve import (check_quant, fwd_int8,
+                                         quantize_estimator)
 from repro_torch.estimator.train import fwd
 from repro_torch.kernels.featurize import kpm_feature_windows
 
@@ -186,15 +189,18 @@ def estimate_fleet(episode: EpisodeBatch, estimator, tp_clip=TP_CLIP_MBPS,
     on ``device``. ``fused=False`` builds the windows on the host
     (``EpisodeBatch.kpm_windows``) and ships them; ``fused=True`` ships the
     raw KPM trace once and the ``featurize`` kernel cuts each chunk's
-    windows on the card. The two give bit-equal windows."""
+    windows on the card. The two give bit-equal windows.
+
+    ``quant="int8"`` quantizes the weights once a call
+    (``quantize_estimator``) and serves every chunk through ``fwd_int8``:
+    the ``lstm_scan_q``, ``quantize`` and ``qmm`` kernels."""
     ecfg, params = estimator
     if not isinstance(ecfg, EstimatorConfig):
         raise _not_ported(f"estimator config {type(ecfg).__name__} (the "
                           "recurrent SSM estimator)", "9")
     if serving is not None:
         raise _not_ported("serving (multi-GPU estimator serving)", "12")
-    if quant is not None:
-        raise _not_ported("quant (int8 serving)", "7")
+    check_quant(quant)
     dev = resolve_device(device)
     if fused and episode.kpms is None:
         raise ValueError("fused featurize needs raw KPM reports: generate "
@@ -205,6 +211,7 @@ def estimate_fleet(episode: EpisodeBatch, estimator, tp_clip=TP_CLIP_MBPS,
             "with include_iq=True")
     n, t_steps = episode.n_ues, episode.n_steps
     alloc = torch.from_numpy(episode.alloc_ratio.astype(np.float32)).to(dev)
+    qparams = quantize_estimator(params) if quant == "int8" else None
     if fused:
         kpms_d = torch.from_numpy(
             np.asarray(episode.kpms, np.float32)).to(dev)
@@ -227,8 +234,13 @@ def estimate_fleet(episode: EpisodeBatch, estimator, tp_clip=TP_CLIP_MBPS,
                 rows, *wins.shape[2:])
         iq_rows = np.asarray(episode.iq[:, sl], np.float32).reshape(
             rows, *episode.iq.shape[2:])
-        out = fwd(ecfg, params, kpms_rows, iq_rows,
-                  alloc.repeat_interleave(b), device=dev)
+        alloc_rows = alloc.repeat_interleave(b)
+        if quant == "int8":
+            out = fwd_int8(ecfg, qparams, kpms_rows, iq_rows, alloc_rows,
+                           device=dev)
+        else:
+            out = fwd(ecfg, params, kpms_rows, iq_rows, alloc_rows,
+                      device=dev)
         est[:, sl] = out.cpu().numpy().reshape(n, b)
     return np.clip(est, tp_clip[0], tp_clip[1])
 
@@ -254,8 +266,9 @@ def simulate_fleet(episode: EpisodeBatch, table, profile: SplitProfile,
     ``StackedLookupTable`` with one row per UE. ``warm_split`` defaults to
     ``fixed_split`` or the controller's fallback. ``estimator``: optional
     (EstimatorConfig, params); without it the controllers see the
-    ground-truth throughput. ``fused`` selects the on-card featurize (see
-    ``estimate_fleet``). ``fixed_split`` also attaches the fixed-policy
+    ground-truth throughput. ``fused`` selects the on-card featurize and
+    ``quant="int8"`` the int8 serving forward (see ``estimate_fleet``).
+    ``fixed_split`` also attaches the fixed-policy
     baseline metrics as ``result.fixed``. Everything runs on ``device``.
     """
     for arg, value, item in (("serving", serving, "12"),
@@ -264,18 +277,19 @@ def simulate_fleet(episode: EpisodeBatch, table, profile: SplitProfile,
                              ("cell_idx", cell_idx, "6"),
                              ("churn", churn, "8"),
                              ("capacity", capacity, "8"),
-                             ("quant", quant, "7"),
                              ("telemetry", telemetry, "11")):
         if value is not None:
             raise _not_ported(arg, item)
     if n_cells != 1:
         raise _not_ported("n_cells", "6")
+    check_quant(quant)
     dev = resolve_device(device)
     tables = (table.tables if isinstance(table, StackedLookupTable)
               else np.broadcast_to(table.table,
                                    (episode.n_ues, len(table.table))))
     true_tp = np.asarray(episode.tp_mbps, float)
-    est_tp = (estimate_fleet(episode, estimator, fused=fused, device=dev)
+    est_tp = (estimate_fleet(episode, estimator, quant=quant, fused=fused,
+                             device=dev)
               if estimator is not None else true_tp)
     if warm_split is None:
         warm_split = cfg.fallback_split if fixed_split is None else fixed_split

@@ -5,7 +5,10 @@ The port keeps the reference's parameter names, shapes and layouts (see
 copy: no transpose, no reordering.
 
 ``params_from_reference`` takes the reference tree as nested dicts of
-numpy arrays (``jax.tree.map(np.asarray, params)``).
+numpy arrays (``jax.tree.map(np.asarray, params)``);
+``qparams_from_reference`` takes the reference's int8 serving tree
+(``jax.tree.map(np.asarray, quantize_estimator(params))``), whose quantized
+leaves are (int8 codes, f32 scales) tuples.
 ``load_reference_checkpoint`` reads the reference checkpoint format
 directly — a ``manifest.json`` plus one ``.npy`` per leaf, keyed by
 ``jax.tree_util.keystr`` paths such as ``['lstm']['wx']`` — without JAX.
@@ -24,19 +27,45 @@ from repro_torch._device import resolve_device
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
+def _tensor(node, dtype, dev: torch.device) -> torch.Tensor:
+    arr = np.asarray(node)
+    if arr.dtype != dtype:
+        raise TypeError(f"reference leaves are {np.dtype(dtype)}, got "
+                        f"{arr.dtype}")
+    return torch.from_numpy(arr.copy()).to(dev)
+
+
+def _convert(node, dev: torch.device, quantized: bool):
+    if isinstance(node, dict):
+        return {k: _convert(v, dev, quantized) for k, v in node.items()}
+    if isinstance(node, tuple):
+        if not quantized:
+            raise TypeError("reference leaves are float32 arrays; a tuple "
+                            "is a quantized leaf: use qparams_from_reference")
+        if len(node) != 2:
+            raise ValueError("a quantized leaf is an (int8 codes, f32 "
+                             f"scales) pair, got {len(node)} arrays")
+        codes = _tensor(node[0], np.int8, dev)
+        scales = _tensor(node[1], np.float32, dev)
+        if codes.dim() != 2 or tuple(scales.shape) != (codes.shape[0], 1):
+            raise ValueError(f"codes (OUT, IN) need scales (OUT, 1), got "
+                             f"{tuple(codes.shape)} and "
+                             f"{tuple(scales.shape)}")
+        return codes, scales
+    return _tensor(node, np.float32, dev)
+
+
 def params_from_reference(tree: dict, *, device="cuda") -> dict:
     """Nested dicts of arrays -> nested dicts of f32 tensors on ``device``."""
-    dev = resolve_device(device)
+    return _convert(tree, resolve_device(device), quantized=False)
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        arr = np.asarray(node)
-        if arr.dtype != np.float32:
-            raise TypeError(f"reference leaves are float32, got {arr.dtype}")
-        return torch.from_numpy(arr.copy()).to(dev)
 
-    return conv(tree)
+def qparams_from_reference(qtree: dict, *, device="cuda") -> dict:
+    """The reference's int8 serving tree -> the port's
+    (``estimator.serve.quantize_estimator``'s) on ``device``: quantized
+    leaves become (int8 (OUT, IN), f32 (OUT, 1)) tensor pairs, the rest
+    f32 tensors."""
+    return _convert(qtree, resolve_device(device), quantized=True)
 
 
 def load_reference_checkpoint(step_dir, *, device="cuda") -> dict:

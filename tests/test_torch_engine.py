@@ -1,6 +1,8 @@
 """The whole slice: the port's ``simulate_fleet(..., fused=True)`` against
 the reference's on a mixed 8-UE, 6-period episode with reference weights.
-Estimates agree to 1e-4; splits, delay, privacy and energy are equal."""
+Estimates agree to 1e-4; splits, delay, privacy and energy are equal. The
+same holds for int8 serving (``quant="int8"``), fused and unfused, and
+int8 stays within the reference's 1 Mbps RMSE bar of the port's fp32."""
 import jax
 import numpy as np
 import pytest
@@ -157,3 +159,59 @@ def test_emit_period_samples_identical(slice_inputs):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), b[k])
+
+
+# int8 serving. The estimates agree to 1e-4 as on the fp32 path (measured
+# max 7.6e-6 on the head's x40 scale): the int8 codes agree, and a code
+# flipped by a last-bit difference of the convolutions or of sigmoid/tanh
+# would show here.
+@pytest.mark.parametrize("fused", [False, True])
+def test_estimate_fleet_int8_matches_reference(slice_inputs, fused):
+    ref, port, _ = slice_inputs
+    want = ref_estimate_fleet(ref["episode"], ref["estimator"], quant="int8",
+                              fused=fused)
+    got = estimate_fleet(port["episode"], port["estimator"], quant="int8",
+                         fused=fused, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    f32 = estimate_fleet(port["episode"], port["estimator"], fused=fused,
+                         device="cpu")
+    assert not np.array_equal(got, f32)  # the int8 path really ran
+
+
+def test_simulate_fleet_int8_matches_reference(slice_inputs):
+    ref, port, fixed = slice_inputs
+    want = _run(ref, ref_simulate_fleet, fused=True, quant="int8",
+                warm_split=fixed, fixed_split=fixed)
+    got = _run(port, simulate_fleet, fused=True, quant="int8",
+               warm_split=fixed, fixed_split=fixed, device="cpu")
+    np.testing.assert_allclose(got.est_tp, want.est_tp, rtol=1e-4,
+                               atol=1e-4)
+    assert len(np.unique(np.round(got.est_tp))) > 5
+    for f in ("splits", "delay_s", "privacy", "energy_j"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    # independent of rounding edges: the reference's int8 estimates
+    # through the port's controllers give the reference's splits exactly
+    tables = np.broadcast_to(ref["table"].table, (8, 131))
+    np.testing.assert_array_equal(
+        run_controllers(tables, want.est_tp, port["cfg"], fixed,
+                        device="cpu"), want.splits)
+
+
+def test_int8_within_1mbps_rmse_of_fp32():
+    """The reference's serving-accuracy bar (tests/test_sim_fused.py):
+    16 UEs x 6 periods, the unscaled reference init, int8 against the
+    port's own fp32, unfused and fused."""
+    e = EstimatorConfig(**SMALL)
+    params = params_from_reference(
+        jax.tree.map(np.array, ref_init(RefConfig(**SMALL),
+                                        jax.random.PRNGKey(0))),
+        device="cpu")
+    names = np.asarray(sc_t.SCENARIOS)[np.arange(16) % 4]
+    ep = sc_t.gen_episode_batch(names, 6, np.random.default_rng(5), n_sc=16)
+    f = estimate_fleet(ep, (e, params), device="cpu")
+    q = estimate_fleet(ep, (e, params), quant="int8", device="cpu")
+    assert float(np.sqrt(np.mean((q - f) ** 2))) < 1.0
+    qf = estimate_fleet(ep, (e, params), quant="int8", fused=True,
+                        device="cpu")
+    np.testing.assert_allclose(qf, q, rtol=1e-6, atol=1e-6)

@@ -1,6 +1,7 @@
 """The port stands alone and says what it cannot do: importing it loads
 neither JAX nor the JAX package; its entry points default to the card and
-raise without one; every argument of a later slice raises."""
+raise without one; every argument of a later slice raises; an unknown
+``quant`` mode is refused as the reference refuses it."""
 import os
 import subprocess
 import sys
@@ -29,8 +30,10 @@ MODULES = [
     "repro_torch.core.pso", "repro_torch.models", "repro_torch.models.vgg",
     "repro_torch.kernels", "repro_torch.kernels._build",
     "repro_torch.kernels.featurize", "repro_torch.kernels.lstm",
+    "repro_torch.kernels.quant", "repro_torch.kernels.qmm",
     "repro_torch.estimator", "repro_torch.estimator.model",
-    "repro_torch.estimator.train", "repro_torch.weights",
+    "repro_torch.estimator.serve", "repro_torch.estimator.train",
+    "repro_torch.weights",
     "repro_torch.sim", "repro_torch.sim.engine"]
 
 
@@ -70,6 +73,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: simulate_fleet(ep, table, prof, cfg),
         lambda: simulate_fleet(ep, table, prof, cfg, estimator=(e, params)),
         lambda: estimate_fleet(ep, (e, params)),
+        lambda: estimate_fleet(ep, (e, params), quant="int8"),
         lambda: run_controllers(np.zeros((2, 5), np.int32),
                                 np.ones((2, 3)), cfg, -1),
         lambda: init_estimator(e, torch.Generator()),
@@ -87,8 +91,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     ({"serving": object()}, "12"), ({"online": object()}, "10"),
     ({"sched": object()}, "6"), ({"cell_idx": np.zeros((4, 3))}, "6"),
     ({"n_cells": 2}, "6"), ({"churn": object()}, "8"),
-    ({"capacity": 4}, "8"), ({"quant": "int8"}, "7"),
-    ({"telemetry": object()}, "11")])
+    ({"capacity": 4}, "8"), ({"serving": object(), "quant": "int8"}, "12"),
+    ({"telemetry": object()}, "11"),
+    ({"online": object(), "quant": "int8"}, "10")])
 def test_later_slices_raise(kw, item):
     e, params, ep, prof, table, cfg = _small()
     with pytest.raises(NotImplementedError, match=f"queue item {item}"):
@@ -96,12 +101,25 @@ def test_later_slices_raise(kw, item):
                        device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw,item", [({"serving": object()}, "12"),
-                                     ({"quant": "int8"}, "7")])
+@pytest.mark.parametrize("kw,item", [
+    ({"serving": object()}, "12"),
+    ({"serving": object(), "quant": "int8"}, "12")])
 def test_estimate_fleet_later_slices_raise(kw, item):
     e, params, ep, *_ = _small()
     with pytest.raises(NotImplementedError, match=f"queue item {item}"):
         estimate_fleet(ep, (e, params), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("entry", ["simulate_fleet", "estimate_fleet"])
+def test_unknown_quant_mode_raises(entry):
+    """As the reference's ``check_quant``: ValueError naming the modes."""
+    e, params, ep, prof, table, cfg = _small()
+    with pytest.raises(ValueError, match="quant must be one of"):
+        if entry == "simulate_fleet":
+            simulate_fleet(ep, table, prof, cfg, estimator=(e, params),
+                           quant="int4", device="cpu")
+        else:
+            estimate_fleet(ep, (e, params), quant="int4", device="cpu")
 
 
 def test_recurrent_estimator_not_ported():
@@ -109,8 +127,10 @@ def test_recurrent_estimator_not_ported():
         pass
 
     _, params, ep, *_ = _small()
-    with pytest.raises(NotImplementedError, match="queue item 9"):
-        estimate_fleet(ep, (SSMConfig(), params), device="cpu")
+    for quant in (None, "int8"):
+        with pytest.raises(NotImplementedError, match="queue item 9"):
+            estimate_fleet(ep, (SSMConfig(), params), quant=quant,
+                           device="cpu")
 
 
 def test_estimate_fleet_input_errors():
