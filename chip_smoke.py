@@ -3,10 +3,12 @@
 
 In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels from the sources in this checkout;
-  3. holds each kernel against its plain PyTorch version on the card, at
-     the shapes of its path (128 UEs x a 16-period chunk: B = 2048
-     estimator rows; the int8 path's fc in passes of 365 rows);
+  2. builds the port's CUDA kernels (seven) from the sources in this
+     checkout;
+  3. holds each kernel of the fp32 and int8 paths against its plain
+     PyTorch version on the card, at the shapes of its path (128 UEs x a
+     16-period chunk: B = 2048 estimator rows; the int8 path's fc in
+     passes of 365 rows);
   4. drives the two paths once each — ``simulate_fleet(..., fused=True)``
      (fp32) and ``simulate_fleet(..., fused=True, quant="int8")`` at the
      paper's estimator width (n_sc 3276, H 124) over a mixed S0-S3 episode
@@ -17,7 +19,16 @@ In order:
      version, a PyTorch yardstick where one call computes the same
      function (cuDNN's LSTM, cuBLAS int8 ``torch._int_mm``), and both
      paths end to end;
-  6. prints ``{"ok": true, "device": {...}}`` as the last line.
+  6. the multi-cell path: ``simulate_cells`` of 1024 UEs over 4 cells x 100
+     periods with handovers and load-coupled interference, the pf PRB
+     scheduler on the segsum kernel and the recurrent SSM estimator on the
+     ssd kernel (a short maxsinr run too): both kernels against their plain
+     versions, the runs with their launch counts (cold, then three warm),
+     the whole fleet against the port on the CPU, the scheduler on the
+     CPU's estimates on both devices, kernel timings (``scatter_reduce_``
+     as segsum's yardstick) and an ``e2e_cells`` line;
+  7. prints the ``{"kernels": [...]}`` line and, last,
+     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -40,6 +51,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 N_UES, T_PERIODS, CPU_UES, SEED = 128, 16, 4, 0
+# the cells path: the reference's cells sweep size (benchmarks/fleet.py,
+# run_cells: sizes [64, 1024], T = 100), 4 cells
+CELLS_UES, CELLS_T, CELLS_C = 1024, 100, 4
 # NVIDIA H100 SXM data sheet, at its 700 W limit: HBM3 rate, the FP32
 # rate outside the tensor cores and the dense int8 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
@@ -131,6 +145,324 @@ def shape_totals(per_shape: list) -> dict:
     tot["bound_by"] = max(per_shape, key=lambda s: s["count"]
                           * s["bound_ms"])["bound_by"]
     return tot
+
+
+def ssd_work(B: int, S: int, nh: int, hd: int, G: int, N: int,
+             L: int) -> tuple[int, int]:
+    """(bytes, flops) of one SSD sequence pass: every input read once and
+    both outputs written once (f32); per (batch, group) and chunk the
+    lower triangle of C.B, the masked intra-chunk product (a difference,
+    an exp and a multiply a (t, s, head), then hd multiply-adds), dt * x,
+    the cumsum, the state term of y and the state update."""
+    hpg, nc, tri = nh // G, S // L, L * (L + 1) // 2
+    nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * G * N
+                  + B * G * hpg * hd * N)
+    per_chunk = (2 * N * tri + hpg * tri * (3 + 2 * hd) + L * hpg * hd
+                 + 2 * L * hpg + L * hpg * hd * (2 * N + 2)
+                 + hpg * hd * N * (3 * L + 2))
+    return nbytes, B * G * nc * per_chunk
+
+
+def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
+    """The multi-cell, PRB-scheduled fleet driven by the recurrent SSM
+    estimator at the repo's cells sweep size (benchmarks/fleet.py
+    run_cells: 1024 UEs over 4 cells, T = 100): the segsum and ssd kernels
+    against their plain versions, the path's runs with their launch
+    counts, the whole fleet against the port on the CPU, timings and the
+    ``e2e_cells`` line. Returns the two kernels' rows of the kernels
+    line."""
+    from repro_torch.channel import scenarios as sc
+    from repro_torch.estimator.ssm import (SSMConfig, episode_features,
+                                           init_ssm, reduce_forecasts,
+                                           ssm_forward_seq)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.segsum import (segment_reduce_batched,
+                                            segment_reduce_ref)
+    from repro_torch.kernels.ssd import ssd, ssd_ref
+    from repro_torch.sim import (SchedulerConfig, attach_ring,
+                                 build_cells_episode, cell_load,
+                                 estimate_fleet, handover_grid,
+                                 ring_coupling, run_scheduled,
+                                 simulate_cells, split_metrics)
+    from repro_torch.channel.throughput import prb_scaled_mbps
+    from repro_torch.core.pso import TP_CLIP_MBPS
+
+    W = sc.WINDOW
+    n, T, C = CELLS_UES, CELLS_T, CELLS_C
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    grid = handover_grid(attach_ring(n, C), T + W, 0.25, rng, n_cells=C)
+    names = np.asarray(sc.SCENARIOS)[np.arange(n) % len(sc.SCENARIOS)]
+    ep = build_cells_episode(names, T, rng, grid, coupling=ring_coupling(C),
+                             include_iq=False)
+    c = SSMConfig(use_kernel=True, forecast_horizon=3,
+                  forecast_policy="discount")
+    params = init_ssm(c, torch.Generator().manual_seed(SEED), device="cpu")
+    # spread the untrained readout over the table's 1-Mbps buckets, as the
+    # fp32 path's head
+    params["head"]["w2"] *= 40.0
+    params["head"]["b2"] += 60.0
+    gparams = {g: {k: v.to(dev) for k, v in d.items()}
+               for g, d in params.items()}
+    tables = np.broadcast_to(table.table, (n, len(table.table)))
+    sched = SchedulerConfig("pf", fused=True)
+    print(f"cells setup: {n} UEs over {C} cells x {T} periods (handover "
+          f"25%, ring coupling), SSMConfig(use_kernel=True, K=3, "
+          f"discount): {time.perf_counter() - t0:.2f} s")
+
+    # the kernels against their plain versions at the path's shapes
+    ids_row = torch.from_numpy(grid[:, W].astype(np.int32))[None].to(dev)
+    rate_row = torch.from_numpy(ep.tp_mbps[:, 0].astype(np.float32))[None] \
+        .to(dev)  # (1, 1024): one period's scheduler reduction
+    ids_load = torch.from_numpy(np.ascontiguousarray(grid.T, np.int32)
+                                ).to(dev)  # (130, 1024): cell_load
+    dem = torch.from_numpy(ep.alloc_ratio.astype(np.float32)).to(dev) \
+        .broadcast_to(ids_load.shape).contiguous()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids_mask = torch.randint(-3, C + 3, (7, 1024), generator=g, device=dev,
+                             dtype=torch.int32)  # ids outside [0, C + 1)
+    v_mask = torch.randn((7, 1024), generator=g, device=dev)
+    # (name, values, ids, segments, atol of a sum): the path's sums are of
+    # positive values; the masked case's random signs cancel, so its
+    # near-zero sums get the reference's atol
+    seg_cases = [("period", rate_row, ids_row, C, 0.0),
+                 ("cell_load", dem, ids_load, C, 0.0),
+                 ("masked", v_mask, ids_mask, C + 1, 1e-5)]
+    seg_err = 0.0
+    for name, v, ids, nseg, atol in seg_cases:
+        for op in ("sum", "max"):
+            got = segment_reduce_batched(v, ids, nseg, op=op)
+            torch.cuda.synchronize()
+            want = segment_reduce_ref(v, ids, nseg, op=op)
+            if op == "max":
+                check(torch.equal(got, want),
+                      f"segsum max bit-equal to plain on {name}")
+            else:
+                check(torch.allclose(got, want, rtol=1e-6, atol=atol),
+                      f"segsum sum within rtol 1e-6 of plain on {name}")
+                seg_err = max(seg_err, (got - want).abs().max().item())
+    load = cell_load(grid, ep.alloc_ratio, C, use_kernel=True, device=dev)
+    check(np.allclose(load, cell_load(grid, ep.alloc_ratio, C), rtol=1e-5,
+                      atol=1e-6), "cell_load on the kernel vs the host")
+    ssd_shapes = [(n, 192, 64, 4, 8, 1, 8), (2, 64, 16, 4, 16, 1, 8),
+                  (2, 128, 32, 8, 32, 2, 16), (2, 96, 96, 2, 8, 1, 4)]
+    ssd_err = [0.0, 0.0]
+    for B, S, L, nh, hd, G, N in ssd_shapes:
+        x = torch.randn((B, S, nh, hd), generator=g, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, nh), generator=g, device=dev)) * 0.5
+        A = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.3)
+        Bm = torch.randn((B, S, G, N), generator=g, device=dev)
+        Cm = torch.randn((B, S, G, N), generator=g, device=dev)
+        y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+        torch.cuda.synchronize()
+        yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+        check(torch.allclose(y, yr, rtol=1e-4, atol=1e-4)
+              and torch.allclose(st, sr, rtol=1e-3, atol=1e-3),
+              f"ssd within 1e-4 (y) and 1e-3 (state) of plain at "
+              f"{(B, S, L, nh, hd, G, N)}")
+        ssd_err = [max(ssd_err[0], (y - yr).abs().max().item()),
+                   max(ssd_err[1], (st - sr).abs().max().item())]
+        if B == n:
+            ssd_in = (x, dt, A, Bm, Cm, L)
+    print(f"cells kernels vs plain: segsum max bit-equal, sum max |err| "
+          f"{seg_err:.3g} (rtol 1e-6) at (1, {n}), ({T + W}, {n}) and a "
+          f"masked (7, 1024) with ids in [-3, {C + 3}); ssd max |err| "
+          f"y {ssd_err[0]:.3g}, state {ssd_err[1]:.3g} at "
+          f"{[s[:5] for s in ssd_shapes]}")
+
+    # the path: cold once, then warm three times, counters around each run
+    def run(policy="pf"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate_cells(ep, grid, table, prof, cfg, n_cells=C,
+                             warm_split=fixed, estimator=(c, gparams),
+                             sched=SchedulerConfig(policy, fused=True),
+                             device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(LAUNCHES)
+
+    torch.cuda.reset_peak_memory_stats()
+    res, first_s, launches = run()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    warm_s = []
+    for _ in range(3):
+        _, s_, l_ = run()
+        warm_s.append(s_)
+        check(l_["segsum"] == T and l_["ssd"] == 1,
+              f"warm cells run launches {l_}")
+    check(launches["segsum"] == T and launches["ssd"] == 1,
+          f"a pf run launches segsum {T} times and ssd once ({launches})")
+    check(all(launches[k] == 0 for k in launches
+              if k not in ("segsum", "ssd")), "the cells path runs no other "
+          f"kernel ({launches})")
+    f = res.fleet
+    check(f.splits.shape == (n, T) and f.prb_share.shape == (n, T),
+          "cells result shapes")
+    for name in ("est_tp", "prb_share", "delay_s"):
+        check(bool(np.isfinite(getattr(f, name)).all()), f"{name} finite")
+    check(np.allclose(res.share_sums(), 1.0, rtol=1e-5),
+          "every cell's PRB shares sum to 1")
+    res_mx, _, launches_mx = run("maxsinr")
+    check(launches_mx["segsum"] == 2 * T and launches_mx["ssd"] == 1,
+          f"a maxsinr run launches segsum {2 * T} times ({launches_mx})")
+
+    # the whole fleet through the port on the CPU: shares couple every UE
+    # of a cell, so no subset is the same computation
+    t0 = time.perf_counter()
+    cpu = simulate_cells(ep, grid, table, prof, cfg, n_cells=C,
+                         warm_split=fixed, estimator=(c, params),
+                         sched=sched, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_est = estimate_fleet(ep, (c, params), device="cpu")
+    card_est = estimate_fleet(ep, (c, gparams), device=dev)
+    est_rel = float(np.max(np.abs(card_est - cpu_est) / np.abs(cpu_est)))
+    check(np.allclose(card_est, cpu_est, rtol=1e-4, atol=0.0),
+          f"card SSM estimates within 1e-4 relative of CPU ({est_rel:.3g})")
+    share_err = float(np.abs(f.prb_share - cpu.fleet.prb_share).max())
+    check(np.allclose(f.prb_share, cpu.fleet.prb_share, rtol=1e-5,
+                      atol=1e-6), f"card pf shares vs CPU ({share_err:.3g})")
+    agree = int((f.splits == cpu.fleet.splits).sum())
+    check(agree >= 0.999 * f.splits.size,
+          f"card splits equal CPU splits on >= 99.9% ({agree} of "
+          f"{f.splits.size})")
+    buckets = len(np.unique(np.round(card_est)))
+    # the CPU's estimates through the scheduler and controllers on both
+    # devices: rr and maxsinr sum small integers, so bit-equal
+    cells_t = grid[:, W:]
+    exact = {}
+    for policy in ("rr", "maxsinr", "pf"):
+        sc_ = SchedulerConfig(policy, fused=True)
+        sp_d, sh_d = run_scheduled(tables, cpu_est, cfg, fixed, sc_, C,
+                                   cells_t, ep.tp_mbps, device=dev)
+        sp_c, sh_c = run_scheduled(tables, cpu_est, cfg, fixed, sc_, C,
+                                   cells_t, ep.tp_mbps, device="cpu")
+        if policy != "pf":
+            check(np.array_equal(sp_d, sp_c) and np.array_equal(sh_d, sh_c),
+                  f"{policy}: card scheduler + controllers bit-equal to CPU")
+        exact[policy] = int((sp_d == sp_c).sum())
+    print(f"cells path: simulate_cells(sched=pf fused, SSM) {n} UEs x {T} "
+          f"periods, launches {launches} (maxsinr {launches_mx}); "
+          f"{buckets} distinct 1-Mbps buckets; card vs CPU (whole fleet, CPU "
+          f"run {cpu_s:.2f} s): estimates max rel {est_rel:.3g}, shares max "
+          f"|err| {share_err:.3g}, splits equal {agree} of {f.splits.size}; "
+          f"CPU estimates through run_scheduled on both: rr and maxsinr "
+          f"bit-equal, pf splits equal {exact['pf']}; jain pf "
+          f"{res.jain():.4f}, maxsinr {res_mx.jain():.4f}; peak device "
+          f"memory {peak_gib:.2f} GiB; first run {first_s:.3f} s")
+
+    # stages of a warm run
+    stages = {}
+    t0 = time.perf_counter()
+    feats = episode_features(ep.kpms, ep.alloc_ratio)
+    stages["episode_features_host"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fc, _ = ssm_forward_seq(c, gparams, feats, device=dev)
+    torch.cuda.synchronize()
+    stages["ssm_forward_seq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = np.clip(reduce_forecasts(c, fc[:, W - 1:W - 1 + T].cpu().numpy()),
+                  *TP_CLIP_MBPS)
+    stages["reduce_forecasts"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    splits, shares = run_scheduled(tables, est, cfg, fixed, sched, C,
+                                   cells_t, ep.tp_mbps, device=dev)
+    stages["run_scheduled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split_metrics(prof, splits, prb_scaled_mbps(ep.tp_mbps, shares),
+                  device=dev)
+    stages["split_metrics"] = time.perf_counter() - t0
+    print(json.dumps({"e2e_cells": {
+        "ue_periods": n * T, "first_s": first_s, "warm_s": warm_s,
+        "ue_periods_per_s": n * T / float(np.median(warm_s)),
+        "stages_s": stages,
+        "launches": {"segsum": launches["segsum"], "ssd": launches["ssd"],
+                     "segsum_maxsinr": launches_mx["segsum"]},
+        "peak_device_gib": peak_gib,
+        "splits_equal_cpu": agree, "splits_total": int(f.splits.size)}}))
+
+    # kernel timings at the path's shapes
+    seg_rows = []
+    for name, v, ids, nseg, _ in seg_cases[:2]:
+        t_, n_ = v.shape
+        red = torch.where((ids >= 0) & (ids < nseg), ids, nseg).long()
+        for op in ("sum", "max"):
+            ms, host = cuda_ms(
+                lambda: segment_reduce_batched(v, ids, nseg, op=op), 200)
+            pms, phost = cuda_ms(
+                lambda: segment_reduce_ref(v, ids, nseg, op=op), 100)
+            # yardstick only (the port never calls it): one scatter into
+            # C + 1 buckets, the last taking the out-of-range ids
+            fill, how = (0.0, "sum") if op == "sum" else (float("-inf"),
+                                                          "amax")
+
+            def lib():
+                return torch.full((t_, nseg + 1), fill, device=dev) \
+                    .scatter_reduce_(1, red, v, how,
+                                     include_self=False)[:, :nseg]
+
+            lib_err = (lib() - segment_reduce_ref(v, ids, nseg, op=op)
+                       ).abs().max().item()
+            lms, lhost = cuda_ms(lib, 200)
+            b_ms, by = bound(4 * (2 * v.numel() + t_ * nseg),
+                             v.numel() * nseg)
+            seg_rows.append({
+                "shape": [t_, n_, nseg], "op": op, "use": name,
+                "count": T if (name, op) == ("period", "sum") else 0,
+                "count_maxsinr": T if name == "period" else 0, "ms": ms,
+                "plain_ms": pms, "bound_ms": b_ms,
+                "bound_by": by, "library_ms": lms, "host_ms": host,
+                "plain_host_ms": phost, "library_host_ms": lhost,
+                "library_max_abs_err": lib_err})
+    main_row = seg_rows[0]  # sum at (1, 1024): the pf path's launch
+    x, dt, A, Bm, Cm, L = ssd_in
+    ssd_ms, ssd_host = cuda_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=L), 50)
+    ssd_plain, ssd_plain_host = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, L),
+                                        5)
+    B, S, nh, hd = x.shape
+    nbytes, flops = ssd_work(B, S, nh, hd, Bm.shape[2], Bm.shape[3], L)
+    ssd_bound, ssd_by = bound(nbytes, flops)
+
+    if "--profile" in argv:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_run:
+            run()
+        wall = time.perf_counter() - t0
+        avg = prof_run.key_averages()
+        device_s = sum(e.self_device_time_total for e in avg
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        busy = device_s / float(np.median(warm_s))
+        print(f"profiled cells run: {wall:.3f} s wall, device time "
+              f"{device_s * 1e3:.2f} ms ({busy:.1%} of the warm run's "
+              "median)")
+        print(avg.table(sort_by="self_cuda_time_total", row_limit=20))
+    return [
+        {"name": "segsum", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/segsum.cu",
+         "replaces": "src/repro/kernels/segsum/kernel.py:57",
+         "launches": launches["segsum"], "max_abs_err": seg_err,
+         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+         "library_ms": main_row["library_ms"], "host_ms": main_row["host_ms"],
+         "plain_host_ms": main_row["plain_host_ms"],
+         "per": f"one launch at the pf scheduler's shape (1, {n}) -> {C}, "
+               f"{T} a run; shapes: each op at both path shapes",
+         "shapes": seg_rows},
+        {"name": "ssd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:65",
+         "launches": launches["ssd"], "max_abs_err": ssd_err[0],
+         "state_max_abs_err": ssd_err[1], "ms": ssd_ms,
+         "plain_ms": ssd_plain, "bound_ms": ssd_bound, "bound_by": ssd_by,
+         "library_ms": None, "host_ms": ssd_host,
+         "plain_host_ms": ssd_plain_host,
+         "shape": [B, S, nh, hd, Bm.shape[2], Bm.shape[3], L]},
+    ]
 
 
 def main(argv: list[str]) -> int:
@@ -588,6 +920,11 @@ def main(argv: list[str]) -> int:
         "warm_s": warm8_s,
         "ue_periods_per_s": N_UES * T_PERIODS / float(np.median(warm8_s)),
         "peak_device_gib": peak8_gib, "rmse_vs_fp32_mbps": rmse8}}))
+
+    # 6. the multi-cell scheduled fleet on the recurrent SSM estimator
+    kernels += cells_path(dev, prof, table, cfg, fixed, argv)
+    for k in kernels[-2:]:
+        print(json.dumps(k))
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile

@@ -1,1 +1,1 @@
-from repro_torch.estimator import model, serve, train  # noqa: F401
+from repro_torch.estimator import model, serve, ssm, train  # noqa: F401

@@ -10,6 +10,10 @@ tensors, and the tests and ``chip_smoke.py`` hold the kernel to it.
              temporal branch)
   quant      rowwise symmetric int8 quantization
   qmm        int8 x int8 -> int32 rowwise-scaled matrix product
+  segsum     batched segment sum / max (the PRB scheduler's normalizers,
+             the per-cell load)
+  ssd        Mamba-2 chunked SSD scan (the recurrent estimator's mixer)
 """
-from repro_torch.kernels import featurize, lstm, qmm, quant  # noqa: F401
+from repro_torch.kernels import (featurize, lstm, qmm, quant,  # noqa: F401
+                                 segsum, ssd)
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

@@ -45,10 +45,16 @@ _SIGNATURES = {
     # (x, wxq, wxs, whq, whs, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_q_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _P],
+    # (values, ids, out, t, n, c, op, stream)
+    "repro_segsum_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, dt, a, bm, cm, y, state, batch, seqlen, nh, hd, groups, n, chunk,
+    #  stream)
+    "repro_ssd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
 }
 
 LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
-            "lstm_scan_q": 0}
+            "lstm_scan_q": 0, "segsum": 0, "ssd": 0}
 
 _lock = threading.Lock()
 _lib = None

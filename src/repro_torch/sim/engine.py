@@ -18,10 +18,13 @@ equivalence reference; both paths give identical split decisions (they
 share ``controller_step``) and identical metrics.
 
 ``quant="int8"`` serves the estimator through the int8 kernels
-(``estimator.serve``). The arguments of later slices (``serving``,
-``online``, ``sched``, ``cell_idx``/``n_cells``, ``churn``/``capacity``,
-``telemetry``, a recurrent SSM estimator) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` queue item; none is ignored.
+(``estimator.serve``). An ``(SSMConfig, params)`` estimator runs the
+recurrent arm (one ``ssd`` sequence pass per chunk of UEs). ``sched``
+puts the gNB PRB scheduler (``sim.sched``, the ``segsum`` kernel with
+``fused=True``) into the per-period loop (``run_scheduled``). The
+arguments of later slices (``serving``, ``online``, ``churn``/
+``capacity``, ``telemetry``) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` queue item; none is ignored.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.channel import kpm as kpmmod
+from repro_torch.channel import throughput as tpmod
 from repro_torch.channel.scenarios import SCENARIOS, WINDOW, EpisodeBatch
 from repro_torch.core.controller import (AdaptiveSplitController,
                                          ControllerConfig, controller_init,
@@ -45,8 +49,12 @@ from repro_torch.core.pso import TP_CLIP_MBPS, StackedLookupTable
 from repro_torch.estimator.model import EstimatorConfig
 from repro_torch.estimator.serve import (check_quant, fwd_int8,
                                          quantize_estimator)
+from repro_torch.estimator.ssm import (SSMConfig, episode_features,
+                                       reduce_forecasts, ssm_forward_seq)
 from repro_torch.estimator.train import fwd
 from repro_torch.kernels.featurize import kpm_feature_windows
+from repro_torch.sim.sched import (SchedulerConfig, scheduler_init,
+                                   scheduler_step)
 
 
 def _not_ported(arg: str, item: str):
@@ -66,6 +74,8 @@ class FleetResult:
     privacy: np.ndarray  # (N, T) dCor leak at the deployed split
     energy_j: np.ndarray  # (N, T) UE energy at the deployed split
     fixed: Optional["FleetResult"] = None  # fixed-split baseline, same shapes
+    prb_share: Optional[np.ndarray] = None  # (N, T) gNB PRB grant, if
+    # a scheduler ran; None on the default (uncontended) path
 
     @property
     def n_ues(self) -> int:
@@ -143,6 +153,44 @@ def run_controllers(tables: np.ndarray, est_tp: np.ndarray,
     return splits.cpu().numpy()
 
 
+def run_scheduled(tables: np.ndarray, est_tp: np.ndarray,
+                  cfg: ControllerConfig, warm_split, sched: SchedulerConfig,
+                  n_cells: int, cell_idx: np.ndarray, rate_mbps: np.ndarray,
+                  *, device="cuda") -> tuple[np.ndarray, np.ndarray]:
+    """((N, T) int32 splits, (N, T) f32 PRB shares in [0, 1]): the gNB
+    scheduler and the controllers, one period after the other on
+    ``device``.
+
+    ``tables``: (N, tp_max+1) stacked lookup rows; ``est_tp``: (N, T)
+    estimated full-grant throughput in Mbps (each controller consumes
+    ``est_tp * share`` in f32); ``cell_idx``: (N, T) cell of each UE per
+    period; ``rate_mbps``: (N, T) the gNB's CQI view (full-grant rate)
+    driving the scheduler. This is the ``sched is not None`` arm of
+    ``simulate_fleet``."""
+    dev = resolve_device(device)
+    tab = torch.as_tensor(np.array(tables, np.int32), device=dev)
+    # period-major, so each period's rows are contiguous
+    est = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(est_tp, np.float32).T), device=dev)
+    rate = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(rate_mbps, np.float32).T), device=dev)
+    cells = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(cell_idx, np.int32).T), device=dev)
+    t_steps, n = est.shape
+    state = controller_init(np.asarray(warm_split, np.int32),
+                            batch_shape=(n,), device=dev)
+    ss = scheduler_init(n, device=dev)
+    splits = torch.empty((t_steps, n), dtype=torch.int32, device=dev)
+    shares = torch.empty((t_steps, n), dtype=torch.float32, device=dev)
+    for t in range(t_steps):
+        ss, shares[t] = scheduler_step(sched, int(n_cells), ss, cells[t],
+                                       rate[t])
+        state, splits[t] = controller_step(tab, state, est[t] * shares[t],
+                                           cfg=cfg)
+    return (splits.T.contiguous().cpu().numpy(),
+            shares.T.contiguous().cpu().numpy())
+
+
 def emit_period_samples(episode: EpisodeBatch, t: int,
                         wins: Optional[np.ndarray] = None, *,
                         trace: Optional[np.ndarray] = None) -> dict:
@@ -193,13 +241,22 @@ def estimate_fleet(episode: EpisodeBatch, estimator, tp_clip=TP_CLIP_MBPS,
 
     ``quant="int8"`` quantizes the weights once a call
     (``quantize_estimator``) and serves every chunk through ``fwd_int8``:
-    the ``lstm_scan_q``, ``quantize`` and ``qmm`` kernels."""
+    the ``lstm_scan_q``, ``quantize`` and ``qmm`` kernels.
+
+    ``estimator`` may instead be an ``(SSMConfig, params)`` pair, the
+    recurrent estimator (``estimator.ssm``): it reads the raw KPM report
+    stream (no windows, and IQ only with ``include_iq``) through one
+    chunked SSD sequence pass per ``EST_CHUNK_ROWS`` UEs; ``fused`` is
+    then a no-op and ``quant`` must be None."""
     ecfg, params = estimator
-    if not isinstance(ecfg, EstimatorConfig):
-        raise _not_ported(f"estimator config {type(ecfg).__name__} (the "
-                          "recurrent SSM estimator)", "9")
     if serving is not None:
         raise _not_ported("serving (multi-GPU estimator serving)", "12")
+    if isinstance(ecfg, SSMConfig):
+        return _estimate_fleet_ssm(episode, ecfg, params, tp_clip,
+                                   quant=quant, device=device)
+    if not isinstance(ecfg, EstimatorConfig):
+        raise TypeError(f"estimator config must be an EstimatorConfig or an "
+                        f"SSMConfig, got {type(ecfg).__name__}")
     check_quant(quant)
     dev = resolve_device(device)
     if fused and episode.kpms is None:
@@ -245,13 +302,45 @@ def estimate_fleet(episode: EpisodeBatch, estimator, tp_clip=TP_CLIP_MBPS,
     return np.clip(est, tp_clip[0], tp_clip[1])
 
 
+def _estimate_fleet_ssm(episode: EpisodeBatch, ecfg: SSMConfig, params,
+                        tp_clip, *, quant: Optional[str] = None,
+                        device="cuda") -> np.ndarray:
+    """The recurrent arm of :func:`estimate_fleet`: the whole (N, T +
+    WINDOW) report stream runs through one chunked SSD sequence pass per
+    ``EST_CHUNK_ROWS`` UEs (the first WINDOW - 1 reports warm the state,
+    matching the windowed path's label alignment), and the (K+1)
+    forecasts collapse to the policy estimate on the host."""
+    if quant is not None:
+        raise ValueError("int8 serving applies to the windowed estimator; "
+                         "the recurrent estimator serves fp32 weights")
+    if episode.kpms is None:
+        raise ValueError("the recurrent estimator needs raw KPM reports: "
+                         "generate the episode with include_kpms=True")
+    if ecfg.include_iq and episode.iq is None:
+        raise ValueError("SSMConfig(include_iq=True) needs spectrogram "
+                         "snapshots: generate the episode with "
+                         "include_iq=True")
+    dev = resolve_device(device)
+    n, t_steps = episode.n_ues, episode.n_steps
+    feats = episode_features(episode.kpms, episode.alloc_ratio,
+                             episode.iq if ecfg.include_iq else None)
+    est = np.empty((n, t_steps))
+    for i in range(0, n, EST_CHUNK_ROWS):
+        fc, _ = ssm_forward_seq(ecfg, params, feats[i:i + EST_CHUNK_ROWS],
+                                device=dev)
+        est[i:i + EST_CHUNK_ROWS] = reduce_forecasts(
+            ecfg, fc[:, WINDOW - 1:WINDOW - 1 + t_steps].cpu().numpy())
+    return np.clip(est, tp_clip[0], tp_clip[1])
+
+
 def simulate_fleet(episode: EpisodeBatch, table, profile: SplitProfile,
                    cfg: ControllerConfig, *, warm_split=None, estimator=None,
                    serving=None, online=None,
                    fixed_split: Optional[int] = None,
                    ue: DeviceProfile = UE_VM_2CORE,
                    server: DeviceProfile = EDGE_A40X2,
-                   sched=None, cell_idx=None, n_cells: int = 1,
+                   sched: Optional[SchedulerConfig] = None,
+                   cell_idx: Optional[np.ndarray] = None, n_cells: int = 1,
                    churn=None, capacity: Optional[int] = None,
                    quant: Optional[str] = None, fused: bool = False,
                    telemetry=None, device="cuda") -> FleetResult:
@@ -265,24 +354,30 @@ def simulate_fleet(episode: EpisodeBatch, table, profile: SplitProfile,
     ``table``: one ``LookupTable`` shared by the fleet or a
     ``StackedLookupTable`` with one row per UE. ``warm_split`` defaults to
     ``fixed_split`` or the controller's fallback. ``estimator``: optional
-    (EstimatorConfig, params); without it the controllers see the
+    (EstimatorConfig or SSMConfig, params); without it the controllers see the
     ground-truth throughput. ``fused`` selects the on-card featurize and
     ``quant="int8"`` the int8 serving forward (see ``estimate_fleet``).
     ``fixed_split`` also attaches the fixed-policy
     baseline metrics as ``result.fixed``. Everything runs on ``device``.
+
+    ``sched``: a ``SchedulerConfig`` puts the gNB PRB scheduler into the
+    per-period loop (``run_scheduled``). ``cell_idx`` (N, T) assigns each
+    UE to one of ``n_cells`` cells per period; each controller consumes
+    its estimate scaled by the PRB share it was granted, and the metrics
+    are gathered at the PRB-scaled ground truth. Without ``sched``,
+    ``cell_idx`` and ``n_cells`` are ignored, as the reference ignores
+    them.
     """
     for arg, value, item in (("serving", serving, "12"),
                              ("online", online, "10"),
-                             ("sched", sched, "6"),
-                             ("cell_idx", cell_idx, "6"),
                              ("churn", churn, "8"),
                              ("capacity", capacity, "8"),
                              ("telemetry", telemetry, "11")):
         if value is not None:
             raise _not_ported(arg, item)
-    if n_cells != 1:
-        raise _not_ported("n_cells", "6")
     check_quant(quant)
+    if sched is not None and cell_idx is None:
+        raise ValueError("a scheduler needs a (N, T) cell_idx")
     dev = resolve_device(device)
     tables = (table.tables if isinstance(table, StackedLookupTable)
               else np.broadcast_to(table.table,
@@ -293,16 +388,25 @@ def simulate_fleet(episode: EpisodeBatch, table, profile: SplitProfile,
               if estimator is not None else true_tp)
     if warm_split is None:
         warm_split = cfg.fallback_split if fixed_split is None else fixed_split
-    splits = run_controllers(tables, est_tp, cfg, warm_split, device=dev)
-    delay, priv, energy = split_metrics(profile, splits, true_tp, ue, server,
+    if sched is None:
+        shares, eff_tp = None, true_tp
+        splits = run_controllers(tables, est_tp, cfg, warm_split, device=dev)
+    else:
+        splits, shares = run_scheduled(tables, est_tp, cfg, warm_split, sched,
+                                       n_cells, cell_idx, true_tp, device=dev)
+        eff_tp = tpmod.prb_scaled_mbps(true_tp, shares)
+        est_tp = est_tp * shares  # what the controllers consumed (float64)
+    delay, priv, energy = split_metrics(profile, splits, eff_tp, ue, server,
                                         device=dev)
     fixed = None
     if fixed_split is not None:
         fsplits = np.full_like(splits, fixed_split)
-        fd, fp, fe = split_metrics(profile, fsplits, true_tp, ue, server,
+        fd, fp, fe = split_metrics(profile, fsplits, eff_tp, ue, server,
                                    device=dev)
-        fixed = FleetResult(fsplits, true_tp, est_tp, fd, fp, fe)
-    return FleetResult(splits, true_tp, est_tp, delay, priv, energy, fixed)
+        fixed = FleetResult(fsplits, true_tp, est_tp, fd, fp, fe,
+                            prb_share=shares)
+    return FleetResult(splits, true_tp, est_tp, delay, priv, energy, fixed,
+                       prb_share=shares)
 
 
 def simulate_fleet_looped(episode: EpisodeBatch, table,

@@ -5,7 +5,8 @@ The port keeps the reference's parameter names, shapes and layouts (see
 copy: no transpose, no reordering.
 
 ``params_from_reference`` takes the reference tree as nested dicts of
-numpy arrays (``jax.tree.map(np.asarray, params)``);
+numpy arrays (``jax.tree.map(np.asarray, params)``), of the windowed
+estimator or of the recurrent SSM (``estimator.ssm.ssm_template``);
 ``qparams_from_reference`` takes the reference's int8 serving tree
 (``jax.tree.map(np.asarray, quantize_estimator(params))``), whose quantized
 leaves are (int8 codes, f32 scales) tuples.

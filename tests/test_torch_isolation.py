@@ -1,7 +1,9 @@
 """The port stands alone and says what it cannot do: importing it loads
 neither JAX nor the JAX package; its entry points default to the card and
-raise without one; every argument of a later slice raises; an unknown
-``quant`` mode is refused as the reference refuses it."""
+raise without one; every argument of a later slice raises; what the
+reference refuses (an unknown ``quant`` mode, a scheduler without cells,
+int8 or a KPM-less episode on the recurrent estimator) the port refuses
+with the reference's error."""
 import os
 import subprocess
 import sys
@@ -16,8 +18,14 @@ from repro_torch.core.controller import ControllerConfig, controller_init
 from repro_torch.core.pso import LookupTable
 from repro_torch.estimator.model import (EstimatorConfig, estimator_forward,
                                          init_estimator)
+from repro_torch.estimator.ssm import (SSMConfig, init_ssm, ssm_forward_seq,
+                                       ssm_state_init, ssm_step,
+                                       ssm_warm_state)
 from repro_torch.models.vgg import FULL, vgg_split_profile
-from repro_torch.sim import estimate_fleet, run_controllers, simulate_fleet
+from repro_torch.sim import (SchedulerConfig, cell_load,
+                             coupled_interference_mw, estimate_fleet,
+                             ring_coupling, run_controllers, run_scheduled,
+                             scheduler_init, simulate_cells, simulate_fleet)
 from repro_torch.weights import params_from_reference
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -31,10 +39,12 @@ MODULES = [
     "repro_torch.kernels", "repro_torch.kernels._build",
     "repro_torch.kernels.featurize", "repro_torch.kernels.lstm",
     "repro_torch.kernels.quant", "repro_torch.kernels.qmm",
+    "repro_torch.kernels.segsum", "repro_torch.kernels.ssd",
     "repro_torch.estimator", "repro_torch.estimator.model",
-    "repro_torch.estimator.serve", "repro_torch.estimator.train",
-    "repro_torch.weights",
-    "repro_torch.sim", "repro_torch.sim.engine"]
+    "repro_torch.estimator.serve", "repro_torch.estimator.ssm",
+    "repro_torch.estimator.train", "repro_torch.weights",
+    "repro_torch.sim", "repro_torch.sim.engine", "repro_torch.sim.sched",
+    "repro_torch.sim.cells"]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -68,6 +78,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """With no card, each entry point called without ``device=`` raises a
     RuntimeError that names ``device="cpu"``; nothing falls back."""
     e, params, ep, prof, table, cfg = _small()
+    c = SSMConfig()
+    sp = init_ssm(c, torch.Generator().manual_seed(0), device="cpu")
+    grid = np.zeros((4, 3), np.int64)
+    sched = SchedulerConfig("pf", fused=True)
+    feats = np.zeros((2, 5, c.n_feats), np.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: simulate_fleet(ep, table, prof, cfg),
@@ -81,31 +96,78 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                   np.zeros((1, 2, 16, 14)), np.ones(1)),
         lambda: params_from_reference({"a": {"b": np.zeros(2, np.float32)}}),
         lambda: controller_init(),
+        lambda: simulate_fleet(ep, table, prof, cfg, sched=sched,
+                               cell_idx=grid, n_cells=2),
+        lambda: simulate_cells(ep, grid, table, prof, cfg, sched=sched),
+        lambda: run_scheduled(np.zeros((4, 5), np.int32), np.ones((4, 3)),
+                              cfg, -1, sched, 2, grid, np.ones((4, 3))),
+        lambda: scheduler_init(4),
+        lambda: cell_load(grid, np.ones(4), 2, use_kernel=True),
+        lambda: coupled_interference_mw(grid, np.ones(4), ring_coupling(2),
+                                        use_kernel=True),
+        lambda: estimate_fleet(ep, (c, sp)),
+        lambda: init_ssm(c, torch.Generator()),
+        lambda: ssm_state_init(c, (2,)),
+        lambda: ssm_forward_seq(c, sp, feats),
+        lambda: ssm_step(c, sp, np.zeros((2,) + c.state_shape(), np.float32),
+                         feats[:, 0]),
+        lambda: ssm_warm_state(c, sp, feats),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"serving": object()}, "12"), ({"online": object()}, "10"),
-    ({"sched": object()}, "6"), ({"cell_idx": np.zeros((4, 3))}, "6"),
-    ({"n_cells": 2}, "6"), ({"churn": object()}, "8"),
-    ({"capacity": 4}, "8"), ({"serving": object(), "quant": "int8"}, "12"),
-    ({"telemetry": object()}, "11"),
-    ({"online": object(), "quant": "int8"}, "10")])
-def test_later_slices_raise(kw, item):
+# The three cases that once asserted NotImplementedError for the
+# multi-cell arguments keep their ids: the scheduler is ported, so a
+# scheduler without cells raises the reference's ValueError, and the
+# cell arguments with churn raise for the slot pool (item 8).
+@pytest.mark.parametrize("kw,error,match", [
+    ({"serving": object()}, NotImplementedError, "queue item 12"),
+    ({"online": object()}, NotImplementedError, "queue item 10"),
+    ({"sched": SchedulerConfig("pf")}, ValueError,
+     r"a scheduler needs a \(N, T\) cell_idx"),
+    ({"cell_idx": np.zeros((4, 3)), "churn": object()}, NotImplementedError,
+     "queue item 8"),
+    ({"n_cells": 2, "sched": SchedulerConfig("pf"), "churn": object()},
+     NotImplementedError, "queue item 8"),
+    ({"churn": object()}, NotImplementedError, "queue item 8"),
+    ({"capacity": 4}, NotImplementedError, "queue item 8"),
+    ({"serving": object(), "quant": "int8"}, NotImplementedError,
+     "queue item 12"),
+    ({"telemetry": object()}, NotImplementedError, "queue item 11"),
+    ({"online": object(), "quant": "int8"}, NotImplementedError,
+     "queue item 10")],
+    ids=["kw0-12", "kw1-10", "kw2-6", "kw3-6", "kw4-6", "kw5-8", "kw6-8",
+         "kw7-12", "kw8-11", "kw9-10"])
+def test_later_slices_raise(kw, error, match):
     e, params, ep, prof, table, cfg = _small()
-    with pytest.raises(NotImplementedError, match=f"queue item {item}"):
+    with pytest.raises(error, match=match):
         simulate_fleet(ep, table, prof, cfg, estimator=(e, params),
                        device="cpu", **kw)
 
 
+def test_cells_without_a_scheduler_are_ignored():
+    """As the reference: ``cell_idx``/``n_cells`` without ``sched`` leave
+    the plain run as it is."""
+    e, params, ep, prof, table, cfg = _small()
+    plain = simulate_fleet(ep, table, prof, cfg, device="cpu")
+    cells = simulate_fleet(ep, table, prof, cfg, cell_idx=np.ones((4, 3)),
+                           n_cells=2, device="cpu")
+    assert cells.prb_share is None
+    np.testing.assert_array_equal(cells.splits, plain.splits)
+    np.testing.assert_array_equal(cells.delay_s, plain.delay_s)
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"serving": object()}, "12"),
-    ({"serving": object(), "quant": "int8"}, "12")])
+    ({"serving": object(), "quant": "int8"}, "12"),
+    ({"serving": object(), "ssm": True}, "12")])
 def test_estimate_fleet_later_slices_raise(kw, item):
     e, params, ep, *_ = _small()
+    if kw.pop("ssm", False):
+        e = SSMConfig()
+        params = init_ssm(e, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match=f"queue item {item}"):
         estimate_fleet(ep, (e, params), device="cpu", **kw)
 
@@ -123,14 +185,24 @@ def test_unknown_quant_mode_raises(entry):
 
 
 def test_recurrent_estimator_not_ported():
-    class SSMConfig:  # stands in for the reference's recurrent config
+    """The recurrent estimator is ported; what the reference refuses on it
+    the port refuses with the reference's ValueError: int8 serving, and an
+    episode without KPM reports. An unknown config type is refused."""
+    _, _, ep, *_ = _small()
+    c = SSMConfig()
+    params = init_ssm(c, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="serves fp32 weights"):
+        estimate_fleet(ep, (c, params), quant="int8", device="cpu")
+    no_kpms = sc.gen_episode_batch(["cci"], 3, np.random.default_rng(0),
+                                   n_sc=16, include_kpms=False)
+    with pytest.raises(ValueError, match="raw KPM reports"):
+        estimate_fleet(no_kpms, (c, params), device="cpu")
+
+    class OtherConfig:
         pass
 
-    _, params, ep, *_ = _small()
-    for quant in (None, "int8"):
-        with pytest.raises(NotImplementedError, match="queue item 9"):
-            estimate_fleet(ep, (SSMConfig(), params), quant=quant,
-                           device="cpu")
+    with pytest.raises(TypeError, match="EstimatorConfig or an SSMConfig"):
+        estimate_fleet(ep, (OtherConfig(), params), device="cpu")
 
 
 def test_estimate_fleet_input_errors():

@@ -11,14 +11,20 @@ from repro_torch.channel import kpm, scenarios as sc
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.pso import LookupTable
 from repro_torch.estimator.model import EstimatorConfig, init_estimator
+from repro_torch.estimator.ssm import SSMConfig, init_ssm
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.featurize import featurize, featurize_ref
 from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
                                       lstm_scan_q_ref, lstm_scan_ref)
 from repro_torch.kernels.qmm import qmm, qmm_ref, quantize_weight
 from repro_torch.kernels.quant import quantize, quantize_ref
+from repro_torch.kernels.segsum import (segment_reduce_batched,
+                                        segment_reduce_ref)
+from repro_torch.kernels.ssd import ssd, ssd_ref
 from repro_torch.models.vgg import FULL, vgg_split_profile
-from repro_torch.sim import simulate_fleet
+from repro_torch.sim import (SchedulerConfig, attach_ring,
+                             build_cells_episode, handover_grid,
+                             ring_coupling, simulate_cells, simulate_fleet)
 
 pytestmark = pytest.mark.cuda
 
@@ -165,3 +171,96 @@ def test_int8_slice_on_card_matches_cpu(card):
     # sigmoid/tanh moves an unscaled estimate by far less than 0.05 Mbps
     np.testing.assert_allclose(got.est_tp, want.est_tp, rtol=1e-3,
                                atol=0.05)
+
+
+# max is exact in any order; a sum of 1024 values in another order is
+# within 1e-6 relative (atol for the random-sign case's cancellation)
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("t,n,c", [(1, 1024, 4), (130, 1024, 4),
+                                   (5, 200, 7), (3, 33, 1), (2, 3000, 19)])
+def test_segsum_kernel_matches_plain(card, op, t, n, c):
+    rng = np.random.default_rng(t * n + c)
+    v = torch.from_numpy(rng.normal(size=(t, n)).astype(np.float32)).to(card)
+    g = torch.from_numpy(rng.integers(-2, c + 2, (t, n)).astype(np.int32)
+                         ).to(card)  # ids outside [0, c) included
+    got = segment_reduce_batched(v, g, c, op=op)
+    torch.cuda.synchronize()
+    want = segment_reduce_ref(v, g, c, op=op)
+    if op == "max":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+        assert torch.equal(got, segment_reduce_batched(v, g, c, op=op))
+
+
+@pytest.mark.parametrize("B,S,L,nh,hd,G,N", [
+    (1024, 192, 64, 4, 8, 1, 8), (2, 64, 16, 4, 16, 1, 8),
+    (2, 128, 32, 8, 32, 2, 16), (2, 96, 96, 2, 8, 1, 4),
+    (3, 256, 256, 2, 8, 1, 8)])
+def test_ssd_kernel_matches_plain(card, B, S, L, nh, hd, G, N):
+    rng = np.random.default_rng(S + L + nh)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(card)
+
+    x, Bm, Cm = t(B, S, nh, hd), t(B, S, G, N), t(B, S, G, N)
+    dt = torch.nn.functional.softplus(t(B, S, nh)) * 0.5
+    A = -torch.exp(t(nh) * 0.3)
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sr, rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_kernel_large_dt_and_padding_finite(card):
+    """dt = 40 drives the decay to 0 without overflow; dt = 0 rows (the
+    padding to a chunk multiple) leave the state as it is."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(2, 128, 4, 8)).astype(np.float32)
+                         ).to(card)
+    bm = torch.from_numpy(rng.normal(size=(2, 128, 1, 8)).astype(np.float32)
+                          ).to(card)
+    dt = torch.full((2, 128, 4), 40.0, device=card)
+    dt[:, 100:] = 0.0
+    A = -torch.ones(4, device=card)
+    y, st = ssd(x, dt, A, bm, bm, chunk=64)
+    y100, st100 = ssd(x[:, :100].contiguous(), dt[:, :100].contiguous(), A,
+                      bm[:, :100].contiguous(), bm[:, :100].contiguous(),
+                      chunk=100)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(st, st100, rtol=1e-4, atol=1e-4)
+
+
+def test_cells_ssm_slice_on_card_matches_cpu(card):
+    n, T, C = 64, 12, 4
+    rng = np.random.default_rng(3)
+    grid = handover_grid(attach_ring(n, C), T + sc.WINDOW, 0.25, rng,
+                         n_cells=C)
+    names = np.asarray(sc.SCENARIOS)[np.arange(n) % 4]
+    ep = build_cells_episode(names, T, rng, grid, coupling=ring_coupling(C))
+    c = SSMConfig(use_kernel=True, forecast_horizon=3,
+                  forecast_policy="discount")
+    params = init_ssm(c, torch.Generator().manual_seed(0), device="cpu")
+    params["head"]["w2"] *= 40.0
+    params["head"]["b2"] += 60.0
+    gpu = {g: {k: v.to(card) for k, v in d.items()}
+           for g, d in params.items()}
+    prof = vgg_split_profile(FULL)
+    table = LookupTable("t", np.arange(131, dtype=np.int32) % 43,
+                        np.zeros(43), np.ones(43, bool))
+    cfg = ControllerConfig(0.6, 2, 3)
+    sched = SchedulerConfig("pf", fused=True)
+    reset_launches()
+    got = simulate_cells(ep, grid, table, prof, cfg, sched=sched,
+                         n_cells=C, estimator=(c, gpu))
+    assert LAUNCHES["ssd"] == 1 and LAUNCHES["segsum"] == T
+    want = simulate_cells(ep, grid, table, prof, cfg, sched=sched,
+                          n_cells=C, estimator=(c, params), device="cpu")
+    np.testing.assert_allclose(got.fleet.prb_share, want.fleet.prb_share,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.fleet.est_tp, want.fleet.est_tp,
+                               rtol=1e-4, atol=1e-4)
+    assert (got.fleet.splits == want.fleet.splits).mean() >= 0.99
