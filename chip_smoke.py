@@ -3,7 +3,7 @@
 
 In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels (seven) from the sources in this
+  2. builds the port's CUDA kernels (eight) from the sources in this
      checkout;
   3. holds each kernel of the fp32 and int8 paths against its plain
      PyTorch version on the card, at the shapes of its path (128 UEs x a
@@ -27,7 +27,18 @@ In order:
      the whole fleet against the port on the CPU, the scheduler on the
      CPU's estimates on both devices, kernel timings (``scatter_reduce_``
      as segsum's yardstick) and an ``e2e_cells`` line;
-  7. prints the ``{"kernels": [...]}`` line and, last,
+  7. the split-computing path at VGG16's full width (224 px, 48 textured
+     images): the forward at all 43 split points, dCor(input, activation)
+     through the pairwise_dists kernel, the measured profile and PSO table,
+     split inference of 8 images at 130/60/30/8 Mbps through the FP16,
+     INT8 and INT4 codecs (the quantize kernel at qmax 127 and 7): the
+     kernel against its plain version, the runs with their launch counts
+     (cold, then three warm), dcor_kernel against the plain profile, the
+     card against the port on the CPU for 8 images (every activation, dCor,
+     split inference's probabilities and its logits), head/tail against the
+     full forward, kernel timings (``torch.cdist`` as the yardstick) and
+     an ``e2e_split`` line;
+  8. prints the ``{"kernels": [...]}`` line and, last,
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
@@ -67,6 +78,31 @@ Q_SCAN_ATOL, Q_SCAN_ROWS_OFF = 5e-3, 0.05
 # head by tenths of a Mbps (0.244 at most on an H100); the bound is half a
 # 1-Mbps controller bucket
 INT8_EST_ATOL = 0.5
+# the split path: VGG16 at the paper's width, fig5's full-run image count,
+# split inference on the first images at the quickstart's throughputs
+SPLIT_IMAGES, SPLIT_CPU_IMAGES = 48, 8
+SPLIT_TPS = (130, 60, 30, 8)
+HEAD_TAIL_SPLITS = (1, 5, 17, 31, 34, 40)  # tests/test_split_models.py
+# pairwise_dists against its plain version: (n, d) at the profile's widths
+# (the input and activations of 48 images), plus tiled and ragged shapes
+PAIRWISE_CHECKS = [(48, 150528), (48, 3211264), (48, 802816), (48, 25088),
+                   (48, 4096), (48, 1000), (200, 300), (33, 70)]
+# squared distances from sums in another order (the kernel's split of d,
+# cuBLAS's): within 1e-4 of |x_i|^2 + |x_j|^2, the scale of the cancelling
+# terms (under 2e-6 on an H100)
+DIST_RTOL = 1e-4
+# dCor from those distances, kernel against plain and card against the
+# CPU's convolutions (under 3e-7 on an H100)
+DCOR_ATOL = 1e-4
+# split inference, card against CPU: the softmax of VGG16's growing
+# activations saturates, so outputs agree far below this (0 measured)
+INFER_ATOL = 1e-5
+# each activation of the forward, and the logits of split inference,
+# card against CPU, relative to the activation's largest magnitude:
+# cuDNN and the CPU sum each convolution in other orders (4.0e-6 at most,
+# logits 3.4e-6, on an H100); tests/test_torch_vgg.py holds the port to
+# the reference at the same bar
+ACT_RTOL = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -463,6 +499,338 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
          "plain_host_ms": ssd_plain_host,
          "shape": [B, S, nh, hd, Bm.shape[2], Bm.shape[3], L]},
     ]
+
+
+def pairwise_work(n: int, d: int) -> tuple[int, int]:
+    """(bytes, flops) of one pairwise-distance call: x read once and the
+    (n, n) distances written once (f32); the Gram x x^T, which is
+    symmetric, so one multiply-add for each of its n (n + 1) / 2 distinct
+    pairs and d columns."""
+    return 4 * (n * d + n * n), n * (n + 1) * d
+
+
+def split_path(dev, argv) -> tuple[dict, dict]:
+    """The paper's split-computing loop with a measured privacy profile, at
+    VGG16's full width (224 px, 48 images): the forward at all 43 split
+    points, dCor(input, activation) through the pairwise-distance kernel,
+    the profile and PSO table, then split inference at four throughputs
+    through each boundary codec (the quantize kernel at qmax 127 and 7).
+    The kernel against its plain version, the path's runs with their
+    launch counts (cold, then three warm), the card against the port on
+    the CPU, head/tail against the full forward, timings and the
+    ``e2e_split`` line. Returns the pairwise_dists row of the kernels line
+    and the quantize kernel's boundary timings."""
+    from repro_torch.core import boundary
+    from repro_torch.core.energy import EDGE_A40X2, UE_VM_2CORE
+    from repro_torch.core.objective import Constraints, Weights
+    from repro_torch.core.privacy import layer_privacy_profile
+    from repro_torch.core.pso import NO_SPLIT, pso_vectorized
+    from repro_torch.core.splitting import (vgg_head, vgg_split_infer,
+                                            vgg_tail)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.dcor import (dcor_kernel, pairwise_dists,
+                                          pairwise_dists_ref)
+    from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.models.vgg import FULL, _shapes, forward, init_vgg, \
+        layout, vgg_split_profile
+
+    n, m = SPLIT_IMAGES, SPLIT_CPU_IMAGES
+    codecs = (boundary.FP16, boundary.INT8, boundary.INT4)
+    t0 = time.perf_counter()
+    params = init_vgg(FULL, torch.Generator().manual_seed(SEED), device=dev)
+    rng = np.random.default_rng(SEED)  # fig5's textured inputs
+    xs = np.cumsum(np.cumsum(rng.normal(size=(
+        n, FULL.image_size, FULL.image_size, 3)), 1), 2)
+    xs = (xs * 0.05).astype(np.float32)
+    print(f"split setup: VGG16 FULL (224 px, 138 M parameters) seeded, {n} "
+          f"textured images: {time.perf_counter() - t0:.2f} s")
+
+    # the kernel against its plain version at the path's shapes, on
+    # non-negative rows as after a ReLU
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    dist_err, dist_rel = 0.0, 0.0
+    for rows, d in PAIRWISE_CHECKS:
+        x = torch.rand((rows, d), generator=g, device=dev)
+        got = pairwise_dists(x)
+        again = pairwise_dists(x)
+        torch.cuda.synchronize()
+        want = pairwise_dists_ref(x)
+        check(torch.equal(torch.diagonal(got), torch.zeros(rows, device=dev)),
+              f"pairwise_dists diagonal exactly 0 at {(rows, d)}")
+        check(torch.equal(got, got.T) and torch.equal(got, again),
+              f"pairwise_dists symmetric and repeatable at {(rows, d)}")
+        sq = (x.double() ** 2).sum(1)
+        rel = float(((got.double() ** 2 - want.double() ** 2).abs()
+                     / (sq[:, None] + sq[None, :])).max())
+        check(rel <= DIST_RTOL, f"pairwise_dists squared distances within "
+              f"{DIST_RTOL} of the rows' squared norms at {(rows, d)} "
+              f"({rel:.3g})")
+        dist_rel = max(dist_rel, rel)
+        dist_err = max(dist_err, float((got - want).abs().max()))
+        del x, got, again, want
+    print(f"pairwise_dists vs plain at {PAIRWISE_CHECKS}: diagonal 0, "
+          f"symmetric and repeatable bit for bit; max |d2 err| / (|x_i|^2 + "
+          f"|x_j|^2) {dist_rel:.3g} (bound {DIST_RTOL}), max |err| "
+          f"{dist_err:.3g}")
+
+    # the path
+    def run():
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acts = forward(FULL, params, xs, collect=True, device=dev)
+        torch.cuda.synchronize()
+        stages["forward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x_in = acts[0].reshape(n, -1)  # op 'input': the images on the card
+        priv = torch.stack([dcor_kernel(x_in, a.reshape(n, -1))
+                            for a in acts]).cpu().numpy().astype(np.float64)
+        stages["dcor_43"] = time.perf_counter() - t0
+        del acts, x_in
+        t0 = time.perf_counter()
+        prof = vgg_split_profile(FULL, privacy=priv)
+        table = pso_vectorized(prof, UE_VM_2CORE, EDGE_A40X2,
+                               Weights(1.0, 0.15, 0.1),
+                               Constraints(rho_max=0.92, tau_max_s=6.0,
+                                           e_max_j=40.0), 130)
+        splits = {tp: table.query(tp) for tp in SPLIT_TPS}
+        stages["profile_pso"] = time.perf_counter() - t0
+        outs = {}
+        for codec in codecs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tp in SPLIT_TPS:
+                outs[tp, codec.name] = vgg_split_infer(
+                    FULL, params, xs[:m], splits[tp], codec, device=dev)
+            torch.cuda.synchronize()
+            stages[f"split_infer_{codec.name}"] = time.perf_counter() - t0
+        return priv, table, splits, outs, stages
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    priv, table, splits, outs, _ = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_quant = 2 * len(SPLIT_TPS)  # INT8 and INT4 at each throughput
+    check(launches["pairwise_dists"] == 2 * 43,
+          f"86 pairwise_dists launches, two a dCor ({launches})")
+    check(launches["quantize"] == n_quant,
+          f"{n_quant} quantize launches ({launches})")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("pairwise_dists", "quantize")),
+          f"the split path runs no other kernel ({launches})")
+    check(bool(np.isfinite(priv).all()) and priv.shape == (43,)
+          and bool(((priv >= 0) & (priv <= 1 + 1e-6)).all()),
+          "43 finite dCor values in [0, 1]")
+    check(abs(priv[0] - 1.0) < 1e-5, f"split 1 (the input) has dCor 1 "
+          f"({priv[0]!r})")
+    check(any(l != NO_SPLIT for l in splits.values()),
+          f"the measured table picks a split ({splits})")
+    for key, out in outs.items():
+        check(out.shape == (m, FULL.num_classes)
+              and bool(torch.isfinite(out).all())
+              and bool(torch.allclose(out.sum(-1), torch.ones(m, device=dev),
+                                      atol=1e-5)),
+              f"split inference {key}: finite probabilities of shape "
+              f"{(m, FULL.num_classes)}")
+    warm, warm_stages = [], []
+    for _ in range(3):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_, _, s_, _, st = run()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        warm_stages.append(st)
+        check(dict(LAUNCHES) == launches and s_ == splits
+              and np.allclose(p_, priv, rtol=0.0, atol=1e-6),
+              "a warm run repeats the first")
+
+    # dcor_kernel against the plain profile, on the card
+    acts = forward(FULL, params, xs, collect=True, device=dev)
+    plain = layer_privacy_profile(acts[0], acts).cpu().numpy()
+    del acts
+    kern_vs_plain = float(np.abs(priv - plain).max())
+    check(kern_vs_plain <= DCOR_ATOL, f"dcor_kernel within {DCOR_ATOL} of "
+          f"layer_privacy_profile on the card ({kern_vs_plain:.3g})")
+
+    # the card against the port on the CPU, first m images: every
+    # activation, relative to its largest magnitude, then dCor
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    cacts = forward(FULL, cpu_params, xs[:m], collect=True, device="cpu")
+    gacts = forward(FULL, params, xs[:m], collect=True, device=dev)
+    act_rel = [float((a.cpu() - c).abs().max() / c.abs().max())
+               for a, c in zip(gacts, cacts)]
+    worst = int(np.argmax(act_rel))
+    check(act_rel[worst] <= ACT_RTOL, f"card activations within {ACT_RTOL} "
+          f"of the CPU's, relative to each one's largest magnitude (split "
+          f"{worst + 1}: {act_rel[worst]:.3g})")
+    cpu_priv = layer_privacy_profile(cacts[0], cacts).numpy()
+    del cacts
+    card_priv = torch.stack([dcor_kernel(gacts[0].reshape(m, -1),
+                                         a.reshape(m, -1)) for a in gacts]
+                            ).cpu().numpy()
+    del gacts
+    card_vs_cpu = float(np.abs(card_priv - cpu_priv).max())
+    check(card_vs_cpu <= DCOR_ATOL, f"card dCor ({m} images, kernel) within "
+          f"{DCOR_ATOL} of the CPU port's ({card_vs_cpu:.3g})")
+    # split inference: the probabilities of the whole path, then the codec
+    # and the tail up to the logits (ops [l, softmax)) on the card's head
+    # activation, so that both devices code the same values
+    logits_op = [kind for kind, _ in layout(FULL.num_classes)].index(
+        "softmax")
+    infer_err, logit_rel = 0.0, 0.0
+    for (tp, name), out in outs.items():
+        codec, l = getattr(boundary, name.upper()), splits[tp]
+        cpu_out = vgg_split_infer(FULL, cpu_params, xs[:m], l, codec,
+                                  device="cpu")
+        err = float((out.cpu() - cpu_out).abs().max())
+        check(err <= INFER_ATOL and torch.equal(out.cpu().argmax(1),
+                                                cpu_out.argmax(1)),
+              f"split inference at {tp} Mbps (split {l + 1}, {name}) card "
+              f"vs CPU within {INFER_ATOL}, same classes ({err:.3g})")
+        infer_err = max(infer_err, err)
+        head = vgg_head(FULL, params, xs[:m], l, device=dev)
+        sent = boundary.roundtrip(head, codec)
+        cpu_sent = boundary.roundtrip(head.cpu(), codec)
+        check(torch.equal(sent.cpu(), cpu_sent), f"{name} round trip at "
+              f"split {l + 1} on the card bit-equal to the CPU's")
+        if l < logits_op:  # else the codec comes after the logits
+            logits = forward(FULL, params, sent, start=l, stop=logits_op,
+                             device=dev).cpu()
+            cpu_logits = forward(FULL, cpu_params, cpu_sent, start=l,
+                                 stop=logits_op, device="cpu")
+            rel = float((logits - cpu_logits).abs().max()
+                        / cpu_logits.abs().max())
+            check(rel <= ACT_RTOL, f"split inference logits at {tp} Mbps "
+                  f"(split {l + 1}, {name}) card vs CPU within {ACT_RTOL} "
+                  f"of their largest magnitude ({rel:.3g})")
+            logit_rel = max(logit_rel, rel)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+
+    # head/tail with no codec against the full forward, on the card
+    full = forward(FULL, params, xs[:m], device=dev)
+    head_err = 0.0
+    for l in HEAD_TAIL_SPLITS:
+        out = vgg_tail(FULL, params, vgg_head(FULL, params, xs[:m], l,
+                                              device=dev), l, device=dev)
+        check(torch.allclose(out, full, rtol=1e-4, atol=1e-5),
+              f"head/tail at split {l} equals the full forward")
+        head_err = max(head_err, float((out - full).abs().max()))
+    print(f"split path: forward of {n} images at {FULL.image_size} px, 43 "
+          f"dCor through the kernel, PSO, split inference of {m} images at "
+          f"{dict(splits)} (TP -> split, 0-based) x {[c.name for c in codecs]}"
+          f"; launches {launches}; dcor_kernel vs plain on the card max "
+          f"{kern_vs_plain:.3g}; card vs CPU ({m} images, {cpu_s:.1f} s on "
+          f"the CPU): activations max {act_rel[worst]:.3g} relative, dCor "
+          f"max {card_vs_cpu:.3g}, split inference max {infer_err:.3g}, its "
+          f"logits max {logit_rel:.3g} relative; head/tail at {HEAD_TAIL_SPLITS} vs full max "
+          f"{head_err:.3g}; peak device memory {peak_gib:.2f} GiB; first run "
+          f"{first_s:.3f} s")
+
+    stages = {k: float(np.median([st[k] for st in warm_stages]))
+              for k in warm_stages[0]}
+    profile_s = [st["forward"] + st["dcor_43"] + st["profile_pso"]
+                 for st in warm_stages]
+    print(json.dumps({"e2e_split": {
+        "images": n, "first_s": first_s, "warm_s": warm,
+        "images_per_s": n / float(np.median(profile_s)),
+        "profile_warm_s": profile_s, "stages_s": stages,
+        "launches": {"pairwise_dists": launches["pairwise_dists"],
+                     "quantize": launches["quantize"]},
+        "peak_device_gib": peak_gib, "privacy": priv.tolist(),
+        "split_by_tp": {str(tp): l for tp, l in splits.items()},
+        "dcor_kernel_vs_plain": kern_vs_plain,
+        "activations_card_vs_cpu_rel": act_rel[worst],
+        "dcor_card_vs_cpu": card_vs_cpu,
+        "split_infer_card_vs_cpu": infer_err,
+        "split_logits_card_vs_cpu_rel": logit_rel,
+        "head_tail_vs_full": head_err,
+        "pairwise_dists_rel_d2": dist_rel}}))
+
+    # the kernel at every shape of one profile run, each timed alone
+    widths = Counter([int(np.prod(s)) for s in _shapes(FULL)])
+    widths[int(np.prod(xs.shape[1:]))] += len(_shapes(FULL))  # the input
+    rows = []
+    for d, count in sorted(widths.items()):
+        x = torch.rand((n, d), generator=g, device=dev)
+        ms, host = cuda_ms(lambda: pairwise_dists(x), 20)
+        pms, phost = cuda_ms(lambda: pairwise_dists_ref(x), 10)
+        # yardstick only (the port never calls it): one cdist call, whose
+        # diagonal is not pinned to 0
+        lms, lhost = cuda_ms(lambda: torch.cdist(
+            x, x, compute_mode="use_mm_for_euclid_dist"), 10)
+        b_ms, by = bound(*pairwise_work(n, d))
+        rows.append({"shape": [n, d], "count": count, "ms": ms,
+                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": lms, "host_ms": host,
+                     "plain_host_ms": phost, "library_host_ms": lhost})
+        del x
+    tot = shape_totals(rows)
+    largest = max(rows, key=lambda r: r["shape"][1])
+
+    # the quantize kernel at the boundary's shapes: the head's activation
+    # of the first m images at each split the table picked, as (rows, C)
+    shapes = _shapes(FULL)
+    qrows = []
+    for l in sorted(set(splits.values())):
+        sh = shapes[l - 1] if l > 0 else xs.shape[1:]
+        nd = (m * int(np.prod(sh[:-1])), int(sh[-1]))
+        x = torch.rand(nd, generator=g, device=dev) * 2.0 - 1.0
+        for qmax in (127, 7):
+            q, s = quantize(x, qmax)
+            torch.cuda.synchronize()
+            rq, rs = quantize_ref(x, qmax)
+            check(torch.equal(q, rq) and torch.equal(s, rs),
+                  f"quantize bit-equal to plain at {nd}, qmax {qmax}")
+            ms, host = cuda_ms(lambda: quantize(x, qmax), 50)
+            pms, phost = cuda_ms(lambda: quantize_ref(x, qmax), 20)
+            b_ms, by = bound(5 * nd[0] * nd[1] + 4 * nd[0],
+                             5 * nd[0] * nd[1])
+            qrows.append({"shape": list(nd), "qmax": qmax, "split": l,
+                          "count": sum(1 for v in splits.values() if v == l),
+                          "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                          "bound_by": by, "host_ms": host,
+                          "plain_host_ms": phost})
+    print(f"quantize vs plain at the boundary's shapes "
+          f"{sorted({tuple(r['shape']) for r in qrows})}: bit-equal at qmax "
+          f"127 and 7")
+
+    if "--profile" in argv:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_run:
+            run()
+        wall = time.perf_counter() - t0
+        avg = prof_run.key_averages()
+        device_s = sum(e.self_device_time_total for e in avg
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        print(f"profiled split run: {wall:.3f} s wall, device time "
+              f"{device_s * 1e3:.2f} ms ({device_s / float(np.median(warm)):.1%}"
+              " of the warm run's median)")
+        print(avg.table(sort_by="self_cuda_time_total", row_limit=25))
+
+    row = {"name": "pairwise_dists", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dcor.cu",
+           "replaces": "src/repro/kernels/dcor/kernel.py:49",
+           "launches": launches["pairwise_dists"], "max_abs_err": dist_err,
+           "max_rel_d2_err": dist_rel, "ms": tot["ms"],
+           "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+           "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
+           "host_ms": tot["host_ms"], "plain_host_ms": tot["plain_host_ms"],
+           "per": f"one profile run ({2 * 43} launches at n = {n}): the sum "
+                  "over its launches, each shape timed alone",
+           "largest": largest, "shapes": rows}
+    return row, {"launches_split": launches["quantize"],
+                 "boundary_shapes": qrows}
 
 
 def main(argv: list[str]) -> int:
@@ -925,6 +1293,13 @@ def main(argv: list[str]) -> int:
     kernels += cells_path(dev, prof, table, cfg, fixed, argv)
     for k in kernels[-2:]:
         print(json.dumps(k))
+
+    # 7. split computing: VGG16 at full width with a measured privacy
+    # profile
+    split_row, quant_split = split_path(dev, argv)
+    next(k for k in kernels if k["name"] == "quantize").update(quant_split)
+    kernels.append(split_row)
+    print(json.dumps(split_row))
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile

@@ -6,8 +6,10 @@ satisfiable, (3) for every integer TP in {1..TP_max} pick
 l* = argmin over feasible l of F(l, TP). The result is an O(1)-lookup table
 the Application Function queries with the estimated throughput.
 
-``pso_vectorized`` is the production path, a float64 numpy copy of the
-reference's: the same inputs give bit-identical tables.
+``pso_vectorized`` is the production path and ``pso_reference`` the
+direct transcription of Algorithm 1 it is checked against; both are
+float64 numpy copies of the reference's: the same inputs give
+bit-identical tables. ``build_tables`` is the outer loop over the UE set.
 """
 from __future__ import annotations
 
@@ -111,6 +113,41 @@ def _tp_min(profile: SplitProfile, ue: DeviceProfile, server: DeviceProfile,
     return tp
 
 
+def pso_reference(profile: SplitProfile, ue: DeviceProfile,
+                  server: DeviceProfile, weights: Weights, cons: Constraints,
+                  tp_max_mbps: int) -> LookupTable:
+    """Direct pseudocode transcription of Algorithm 1 (single UE)."""
+    L = profile.n_splits
+    d_ue = profile.d_ue(ue)
+    d_ser = profile.d_ser(server)
+    e_ue = profile.e_ue(ue)
+    p = profile.privacy
+    # lines 2-7: prefilter + minimal throughput per split
+    feas: list[tuple[int, float]] = []
+    for l in range(L):
+        if p[l] <= cons.rho_max and e_ue[l] <= cons.e_max_j:
+            slack = cons.tau_max_s - d_ue[l] - d_ser[l]
+            tp_min = (profile.data_bytes[l] * 8.0 / slack if slack > 0
+                      else np.inf)
+            feas.append((l, tp_min))
+    # lines 8-13: sweep integer throughputs
+    table = np.full(tp_max_mbps + 1, NO_SPLIT, np.int32)
+    for tp in range(1, tp_max_mbps + 1):
+        tp_bps = tp * 1e6
+        cand = [l for (l, tpm) in feas if tpm <= tp_bps]
+        if not cand:
+            continue
+        terms = evaluate(profile, ue, server, np.array([tp_bps]), weights,
+                         cons)
+        fvals = terms.f[cand, 0]
+        best = int(np.argmin(fvals))
+        if np.isfinite(fvals[best]):
+            table[tp] = cand[best]
+    tp_min_all = _tp_min(profile, ue, server, cons)
+    pre = (p <= cons.rho_max) & (e_ue <= cons.e_max_j)
+    return LookupTable(profile.name, table, tp_min_all / 1e6, pre)
+
+
 def pso_vectorized(profile: SplitProfile, ue: DeviceProfile,
                    server: DeviceProfile, weights: Weights, cons: Constraints,
                    tp_max_mbps: int) -> LookupTable:
@@ -129,3 +166,11 @@ def pso_vectorized(profile: SplitProfile, ue: DeviceProfile,
     table[1:] = np.where(ok, best, NO_SPLIT)
     return LookupTable(profile.name, table, tp_min / 1e6, pre)
 
+
+
+def build_tables(profiles: dict[str, SplitProfile], ue: DeviceProfile,
+                 server: DeviceProfile, weights: Weights, cons: Constraints,
+                 tp_max_mbps: int) -> dict[str, LookupTable]:
+    """Algorithm 1 outer loop over the UE set."""
+    return {name: pso_vectorized(p, ue, server, weights, cons, tp_max_mbps)
+            for name, p in profiles.items()}

@@ -31,15 +31,15 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C entry point -> argtypes; each returns cudaGetLastError() as an int
 _SIGNATURES = {
     # (x, center, scale, out, n, length, k, window, stream)
     "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wx, wh, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (x, q, scale, n, d, stream)
-    "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _P],
+    # (x, q, scale, n, d, qmax, f32(1 / qmax), stream)
+    "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
     # (xq, sx, wq, sw, out, part, m, n, k, splits, stream)
     "repro_qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wxq, wxs, whq, whs, b, h_out, batch, steps, k, hidden, stream)
@@ -51,10 +51,12 @@ _SIGNATURES = {
     #  stream)
     "repro_ssd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P],
+    # (x, work, out, n, d, tile, chunk, splits, stream)
+    "repro_pairwise_dists_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
-            "lstm_scan_q": 0, "segsum": 0, "ssd": 0}
+            "lstm_scan_q": 0, "segsum": 0, "ssd": 0, "pairwise_dists": 0}
 
 _lock = threading.Lock()
 _lib = None

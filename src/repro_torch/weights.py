@@ -1,4 +1,4 @@
-"""Carry estimator weights from the JAX package into the port.
+"""Carry estimator and VGG16 weights from the JAX package into the port.
 
 The port keeps the reference's parameter names, shapes and layouts (see
 ``estimator.model.estimator_template``), so carrying weights across is a
@@ -10,6 +10,10 @@ estimator or of the recurrent SSM (``estimator.ssm.ssm_template``);
 ``qparams_from_reference`` takes the reference's int8 serving tree
 (``jax.tree.map(np.asarray, quantize_estimator(params))``), whose quantized
 leaves are (int8 codes, f32 scales) tuples.
+``vgg_params_from_reference`` takes the reference's flat VGG16 tree
+(``{"op{i}_w": HWIO kernel or (in, out) fc weight, "op{i}_b": (C,)}``);
+the forward permutes the kernels at use, so names and layouts carry over
+as they are.
 ``load_reference_checkpoint`` reads the reference checkpoint format
 directly — a ``manifest.json`` plus one ``.npy`` per leaf, keyed by
 ``jax.tree_util.keystr`` paths such as ``['lstm']['wx']`` — without JAX.
@@ -67,6 +71,22 @@ def qparams_from_reference(qtree: dict, *, device="cuda") -> dict:
     leaves become (int8 (OUT, IN), f32 (OUT, 1)) tensor pairs, the rest
     f32 tensors."""
     return _convert(qtree, resolve_device(device), quantized=True)
+
+
+_VGG_KEY = re.compile(r"op\d+_[wb]")
+
+
+def vgg_params_from_reference(tree: dict, *, device="cuda") -> dict:
+    """The reference's ``init_vgg`` tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``) -> {name: f32 tensor} on
+    ``device``, names and layouts unchanged."""
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in tree.items():
+        if not _VGG_KEY.fullmatch(name):
+            raise ValueError(f"not a VGG parameter name: {name!r}")
+        out[name] = _tensor(leaf, np.float32, dev)
+    return out
 
 
 def load_reference_checkpoint(step_dir, *, device="cuda") -> dict:

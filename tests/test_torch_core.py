@@ -95,6 +95,38 @@ def test_pso_tables_identical(w, cons):
         assert a.query(tp) == b.query(tp)
 
 
+@pytest.mark.parametrize("w,cons", PSO_SETTINGS, ids=["fig6", "delay",
+                                                       "mixed"])
+def test_pso_reference_and_build_tables_identical(w, cons):
+    """Algorithm 1's direct transcription and the outer loop over UEs,
+    against the reference's and against the vectorised sweep, on the
+    paper's profile and on one whose privacy is the measured kind (the
+    input near 1, a slow decay)."""
+    measured = np.linspace(1.0, 0.3, 43)
+    profs_r = {"paper": vgg_ref.vgg_split_profile(vgg_ref.FULL),
+               "measured": vgg_ref.vgg_split_profile(vgg_ref.FULL,
+                                                     privacy=measured)}
+    profs_t = {"paper": vgg_t.vgg_split_profile(vgg_t.FULL),
+               "measured": vgg_t.vgg_split_profile(vgg_t.FULL,
+                                                   privacy=measured)}
+    args_r = (REF_UE, REF_EDGE, RefWeights(*w), RefConstraints(**cons), 130)
+    args_t = (UE_VM_2CORE, EDGE_A40X2, Weights(*w), Constraints(**cons), 130)
+    built_r = pso_ref.build_tables(profs_r, *args_r)
+    built_t = pso_t.build_tables(profs_t, *args_t)
+    assert list(built_t) == list(built_r)
+    for name in profs_t:
+        a = pso_ref.pso_reference(profs_r[name], *args_r)
+        b = pso_t.pso_reference(profs_t[name], *args_t)
+        v = pso_t.pso_vectorized(profs_t[name], *args_t)
+        for f in ("table", "tp_min_mbps", "feasible_prefilter"):
+            for got in (getattr(b, f), getattr(built_t[name], f)):
+                assert got.dtype == getattr(a, f).dtype
+                np.testing.assert_array_equal(got, getattr(a, f))
+            np.testing.assert_array_equal(getattr(built_t[name], f),
+                                          getattr(built_r[name], f))
+        np.testing.assert_array_equal(b.table, v.table)
+
+
 def test_constants_identical():
     assert pso_t.TP_CLIP_MBPS == pso_ref.TP_CLIP_MBPS
     assert pso_t.NO_SPLIT == pso_ref.NO_SPLIT

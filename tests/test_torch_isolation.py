@@ -21,12 +21,15 @@ from repro_torch.estimator.model import (EstimatorConfig, estimator_forward,
 from repro_torch.estimator.ssm import (SSMConfig, init_ssm, ssm_forward_seq,
                                        ssm_state_init, ssm_step,
                                        ssm_warm_state)
-from repro_torch.models.vgg import FULL, vgg_split_profile
+from repro_torch.core.splitting import vgg_head, vgg_split_infer, vgg_tail
+from repro_torch.models.vgg import (FULL, REDUCED, forward, init_vgg,
+                                    vgg_split_profile)
 from repro_torch.sim import (SchedulerConfig, cell_load,
                              coupled_interference_mw, estimate_fleet,
                              ring_coupling, run_controllers, run_scheduled,
                              scheduler_init, simulate_cells, simulate_fleet)
-from repro_torch.weights import params_from_reference
+from repro_torch.weights import (params_from_reference,
+                                 vgg_params_from_reference)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 MODULES = [
@@ -35,8 +38,11 @@ MODULES = [
     "repro_torch.channel.throughput", "repro_torch.core",
     "repro_torch.core.controller", "repro_torch.core.energy",
     "repro_torch.core.objective", "repro_torch.core.profiles",
-    "repro_torch.core.pso", "repro_torch.models", "repro_torch.models.vgg",
+    "repro_torch.core.pso", "repro_torch.core.privacy",
+    "repro_torch.core.boundary", "repro_torch.core.splitting",
+    "repro_torch.models", "repro_torch.models.vgg",
     "repro_torch.kernels", "repro_torch.kernels._build",
+    "repro_torch.kernels.dcor",
     "repro_torch.kernels.featurize", "repro_torch.kernels.lstm",
     "repro_torch.kernels.quant", "repro_torch.kernels.qmm",
     "repro_torch.kernels.segsum", "repro_torch.kernels.ssd",
@@ -83,6 +89,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     grid = np.zeros((4, 3), np.int64)
     sched = SchedulerConfig("pf", fused=True)
     feats = np.zeros((2, 5, c.n_feats), np.float32)
+    vp = init_vgg(REDUCED, torch.Generator().manual_seed(0), device="cpu")
+    img = np.zeros((1, 32, 32, 3), np.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: simulate_fleet(ep, table, prof, cfg),
@@ -112,6 +120,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: ssm_step(c, sp, np.zeros((2,) + c.state_shape(), np.float32),
                          feats[:, 0]),
         lambda: ssm_warm_state(c, sp, feats),
+        lambda: init_vgg(REDUCED, torch.Generator()),
+        lambda: forward(REDUCED, vp, img),
+        lambda: vgg_head(REDUCED, vp, img, 5),
+        lambda: vgg_tail(REDUCED, vp, np.zeros((1, 10), np.float32), 41),
+        lambda: vgg_split_infer(REDUCED, vp, img, 17),
+        lambda: vgg_params_from_reference(
+            {"op1_b": np.zeros(2, np.float32)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):

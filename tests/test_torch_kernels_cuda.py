@@ -11,8 +11,11 @@ from repro_torch.channel import kpm, scenarios as sc
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.pso import LookupTable
 from repro_torch.estimator.model import EstimatorConfig, init_estimator
+from repro_torch.core.privacy import layer_privacy_profile
 from repro_torch.estimator.ssm import SSMConfig, init_ssm
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels.dcor import (dcor_kernel, pairwise_dists,
+                                      pairwise_dists_ref)
 from repro_torch.kernels.featurize import featurize, featurize_ref
 from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
                                       lstm_scan_q_ref, lstm_scan_ref)
@@ -21,7 +24,8 @@ from repro_torch.kernels.quant import quantize, quantize_ref
 from repro_torch.kernels.segsum import (segment_reduce_batched,
                                         segment_reduce_ref)
 from repro_torch.kernels.ssd import ssd, ssd_ref
-from repro_torch.models.vgg import FULL, vgg_split_profile
+from repro_torch.models.vgg import (FULL, REDUCED, forward, init_vgg,
+                                    vgg_split_profile)
 from repro_torch.sim import (SchedulerConfig, attach_ring,
                              build_cells_episode, handover_grid,
                              ring_coupling, simulate_cells, simulate_fleet)
@@ -77,6 +81,86 @@ def test_quantize_kernel_bit_equal(card, n, d):
     torch.cuda.synchronize()
     rq, rs = quantize_ref(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+# the boundary codec's rows: NHWC channel rows of VGG16 activations at
+# a few splits (8 images) and a flat fc row; qmax 7 is the INT4 codec
+@pytest.mark.parametrize("qmax", [7, 127])
+@pytest.mark.parametrize("n,d", [(8 * 224 * 224, 64), (8 * 56 * 56, 256),
+                                 (8 * 7 * 7, 512), (8, 4096), (8, 25088),
+                                 (5, 3)])
+def test_quantize_kernel_qmax_bit_equal(card, qmax, n, d):
+    rng = np.random.default_rng(n + d + qmax)
+    x = torch.from_numpy((rng.normal(size=(n, d))
+                          * rng.uniform(0.01, 100.0, size=(n, 1)))
+                         .astype(np.float32)).to(card)
+    x[0] = 0.0
+    q, s = quantize(x, qmax)
+    torch.cuda.synchronize()
+    rq, rs = quantize_ref(x, qmax)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert int(q.min()) >= -qmax - 1 and int(q.max()) <= qmax
+
+
+# The kernel sums x_i . x_j in its own order (a split of d across blocks,
+# FP32 FMAs) and the plain version through cuBLAS: squared distances agree
+# to 1e-4 of the rows' squared norms, the scale of the terms that cancel.
+@pytest.mark.parametrize("n,d", [(48, 150528), (48, 3211264), (48, 802816),
+                                 (48, 25088), (48, 4096), (48, 1000),
+                                 (200, 300), (33, 70), (64, 128), (100, 300),
+                                 (129, 77), (1, 5), (2, 1)])
+def test_pairwise_dists_kernel_matches_plain(card, n, d):
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
+                         + np.float32(0.5)).to(card)
+    got = pairwise_dists(x)
+    torch.cuda.synchronize()
+    want = pairwise_dists_ref(x)
+    assert torch.equal(torch.diagonal(got), torch.zeros(n, device=card))
+    assert torch.equal(got, got.T)  # x_i . x_j and x_j . x_i round alike
+    assert torch.equal(got, pairwise_dists(x))  # no atomics
+    sq = (x.double() ** 2).sum(1)
+    err = (got.double() ** 2 - want.double() ** 2).abs()
+    assert bool((err <= 1e-4 * (sq[:, None] + sq[None, :])).all())
+
+
+def test_pairwise_dists_kernel_odd_alignment(card):
+    """A row pitch that is not a multiple of four floats, and a base that
+    is not 16-byte aligned, take the scalar loads."""
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(rng.normal(size=(40 * 1001 + 1,))
+                            .astype(np.float32)).to(card)
+    x = base[1:].view(40, 1001)
+    got = pairwise_dists(x)
+    torch.cuda.synchronize()
+    want = pairwise_dists_ref(x)
+    sq = (x.double() ** 2).sum(1)
+    err = (got.double() ** 2 - want.double() ** 2).abs()
+    assert bool((err <= 1e-4 * (sq[:, None] + sq[None, :])).all())
+
+
+def test_split_slice_on_card_matches_cpu(card):
+    """REDUCED VGG16 forward, the measured 43-split dCor profile through
+    the kernel, and its plain profile: card against the port on the
+    CPU."""
+    params = init_vgg(REDUCED, torch.Generator().manual_seed(0),
+                      device="cpu")
+    gparams = {k: v.to(card) for k, v in params.items()}
+    rng = np.random.default_rng(0)
+    xs = np.cumsum(np.cumsum(rng.normal(size=(16, 32, 32, 3)), 1), 2)
+    xs = (xs * 0.05).astype(np.float32)
+    acts = forward(REDUCED, gparams, xs, collect=True)
+    cacts = forward(REDUCED, params, xs, collect=True, device="cpu")
+    x = torch.from_numpy(xs).to(card)
+    reset_launches()
+    got = torch.stack([dcor_kernel(x.reshape(16, -1), a.reshape(16, -1))
+                       for a in acts])
+    assert LAUNCHES["pairwise_dists"] == 86
+    plain = layer_privacy_profile(x, acts)
+    cpu = layer_privacy_profile(torch.from_numpy(xs), cacts)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), atol=1e-4)
 
 
 @pytest.mark.parametrize("m,n,k", [(8, 32, 15), (100, 17, 33),

@@ -93,7 +93,8 @@ def test_cpu_wrapper_is_the_plain_version():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "rank", "contiguous", "empty"])
+@pytest.mark.parametrize("bad", ["dtype", "rank", "contiguous", "empty",
+                                 "qmax"])
 def test_wrapper_rejects_malformed_input(bad):
     x = torch.ones((4, 8), dtype=torch.float32)
     if bad == "dtype":
@@ -102,7 +103,7 @@ def test_wrapper_rejects_malformed_input(bad):
         x = x[0]
     elif bad == "contiguous":
         x = x.T
-    else:
+    elif bad == "empty":
         x = x[:, :0]
     with pytest.raises((TypeError, ValueError)):
-        quantize(x)
+        quantize(x, 128 if bad == "qmax" else 127)
