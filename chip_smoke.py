@@ -3,7 +3,7 @@
 
 In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels (eight) from the sources in this
+  2. builds the port's CUDA kernels (nine) from the sources in this
      checkout;
   3. holds each kernel of the fp32 and int8 paths against its plain
      PyTorch version on the card, at the shapes of its path (128 UEs x a
@@ -38,7 +38,22 @@ In order:
      split inference's probabilities and its logits), head/tail against the
      full forward, kernel timings (``torch.cdist`` as the yardstick) and
      an ``e2e_split`` line;
-  8. prints the ``{"kernels": [...]}`` line and, last,
+  8. the dense LM's split serving at granite-8b's full width and depth
+     (36 layers, d 4096, 32 q heads over 8 kv heads, dh 128; bf16 weights
+     seeded on the card): the flash_attention kernel against its plain
+     version at the path's shape (128, 4096, 128) bf16 causal and at f32,
+     window-1024, dh-80 (non-causal) and dh-64 cases; ``lm_split_infer``
+     of 4 x 4096 tokens at split 18 through the FP16, INT8 and INT4 codecs
+     (cold, then three warm runs, 36 flash_attention launches a run and
+     one quantize launch an integer codec), the codec's quantize kernel on
+     the bf16 boundary activation against its plain version, head plus
+     tail against the forward, the kernel on layer 0's own q, k, v
+     against its plain version, and at full width cut to 2 layers each
+     block through the kernel, through ``use_kernel=False`` and through
+     the port on the CPU on one input (f32 and bf16), kernel timings
+     (``scaled_dot_product_attention`` as the yardstick) and an ``e2e_lm``
+     line;
+  9. prints the ``{"kernels": [...]}`` line and, last,
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
@@ -70,6 +85,7 @@ CELLS_UES, CELLS_T, CELLS_C = 1024, 100, 4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
+BF16_FLOPS = 989e12  # dense, on the tensor cores
 # the int8 LSTM on the card against its plain version: sigmoid/tanh ulps
 # can flip an int8 code of h (tests/test_torch_lstm.py states the same)
 Q_SCAN_ATOL, Q_SCAN_ROWS_OFF = 5e-3, 0.05
@@ -97,6 +113,34 @@ DCOR_ATOL = 1e-4
 # split inference, card against CPU: the softmax of VGG16's growing
 # activations saturates, so outputs agree far below this (0 measured)
 INFER_ATOL = 1e-5
+# the LM path: granite-8b at full width and depth with launch/serve.py's
+# defaults (the middle split of its 36 megablocks, the int8 codec among
+# the three), batch 4 x 4096 seeded tokens
+LM_ARCH, LM_BATCH, LM_SEQ, LM_SPLIT = "granite-8b", 4, 4096, 18
+# the card against the port on the CPU: full width, 2 layers, 256 tokens
+LM_CPU_LAYERS, LM_CPU_SEQ = 2, 256
+# flash_attention against its plain version: (BH, S, dh, dtype, causal,
+# window); the first is the path's launch (batch 4 x 32 q heads)
+ATTN_CHECKS = [(128, 4096, 128, "bfloat16", True, 0),
+               (32, 1024, 128, "float32", True, 0),
+               (32, 4096, 128, "bfloat16", True, 1024),
+               (32, 1024, 80, "bfloat16", False, 0),
+               (32, 1024, 64, "bfloat16", True, 0)]
+# f32: within 1e-5 of max|o|. bf16: each element within one bf16 ulp of its
+# own magnitude (the f32 sums run in another order, so a rounding can
+# flip), over a floor of the same 1e-5 of max|o| for elements near 0
+ATTN_RTOL = 1e-5
+# granite-8b's seeded weights (the reference's init) make the scores reach
+# |s| ~ 1.6e3, so a near tie between two keys turns on the last bit of a
+# score, and the forward's logits move with any change of rounding: two
+# f32 layers whose blocks agree to 4.4e-5 between the card and the CPU
+# end 0.155 of the logit scale apart (on an H100). So routes and devices
+# are compared block by block on one input, each output relative to its
+# largest magnitude, and the end-to-end logits are reported. f32: 1e-4
+# (a block moves by 4.4e-5 of its magnitude between the card's and the
+# CPU's sums through such near ties, by 1.8e-7 between the card's two
+# attention routes); bf16: the tests' bf16 bound (tests/test_torch_lm.py)
+LM_BLOCK_RTOL = {"float32": 1e-4, "bfloat16": 0.05}
 # each activation of the forward, and the logits of split inference,
 # card against CPU, relative to the activation's largest magnitude:
 # cuDNN and the CPU sum each convolution in other orders (4.0e-6 at most,
@@ -139,13 +183,14 @@ def cuda_ms(fn, iters: int) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, host_s * 1e3 / iters
 
 
-def bound(nbytes: float, flops: float,
-          int8_ops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, int8_ops: float = 0.0,
+          bf16_ops: float = 0.0) -> tuple[float, str]:
     """Least time on the card (ms) for the work, and what bounds it: the
     bytes over the memory rate, or the operations of each type over that
-    type's peak (FP32 and int8 run on separate units, so the larger)."""
+    type's peak (FP32, int8 and bf16 on separate units, so the largest)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / FP32_FLOPS, int8_ops / INT8_OPS)
+    t_ops = max(flops / FP32_FLOPS, int8_ops / INT8_OPS,
+                bf16_ops / BF16_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -832,6 +877,346 @@ def split_path(dev, argv) -> tuple[dict, dict]:
     return row, {"launches_split": launches["quantize"],
                  "boundary_shapes": qrows}
 
+def attention_close(got, want) -> tuple[bool, float, float]:
+    """(within ATTN_RTOL's bound, max |err|, the largest error over its
+    bound): see ATTN_RTOL."""
+    err = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        worst = float(err.max()) / (ATTN_RTOL * top)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(1e-30))) - 7)
+        worst = float((err / (ulp + ATTN_RTOL * top)).max())
+    return worst <= 1.0, float(err.max()), worst
+
+
+def attention_work(bh: int, s: int, dh: int, nbytes_el: int,
+                   causal: bool) -> tuple[int, int]:
+    """(bytes, flops) of one attention call: q, k, v read once and o
+    written once; Q.K^T and P.V, 2 s^2 dh multiply-adds a head, half of
+    them under the causal mask."""
+    flops = bh * s * s * dh * 2 * 2
+    return 4 * bh * s * dh * nbytes_el, flops // 2 if causal else flops
+
+
+def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
+    """The dense LM's split serving at granite-8b's full width and depth:
+    the flash_attention kernel against its plain version, split inference
+    through the three codecs (cold, then three warm runs) with its launch
+    counts, head plus tail against the forward, the kernel path against
+    ``use_kernel=False``, the card against the port on the CPU (2 layers),
+    timings and the ``e2e_lm`` line. Returns the flash_attention row of
+    the kernels line and the quantize kernel's LM boundary timing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import boundary
+    from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flatten_gqa)
+    from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.models import blocks, init_params, lm
+    from repro_torch.models.template import tree_map
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    # the kernel against its plain version
+    attn_rows = []
+    for bh, s, dh, dt, causal, window in ATTN_CHECKS:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((bh, s, dh), generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        ok, err, worst = attention_close(got, want)
+        case = (bh, s, dh, dt, causal, window)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention within its bound of plain at {case} "
+              f"(max |err| {err:.3g}, {worst:.3g} of the bound)")
+        attn_rows.append({"case": list(case), "max_abs_err": err,
+                          "of_bound": worst})
+        if len(attn_rows) == 1:
+            path_in = (q, k, v)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    print(f"flash_attention vs plain: {attn_rows}")
+
+    # timings at the path's shape: one launch of the 36 of a forward
+    q, k, v = path_in
+    bh, s, dh = q.shape
+    ms, host = cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    pms, phost = cuda_ms(lambda: attention_ref(q, k, v, causal=True), 2)
+    # yardstick only (the port never calls it): PyTorch's fused attention
+    # on the same tensors as (batch, heads, S, dh)
+    q4, k4, v4 = (t.view(LM_BATCH, bh // LM_BATCH, s, dh) for t in path_in)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)
+
+    lib_err = float((sdpa().reshape(bh, s, dh).float() - attention_ref(
+        q, k, v, causal=True).float()).abs().max())
+    lms, lhost = cuda_ms(sdpa, 20)
+    nbytes, flops = attention_work(bh, s, dh, 2, True)
+    b_ms, by = bound(nbytes, 0.0, bf16_ops=flops)
+    del q, k, v, q4, k4, v4, path_in
+    torch.cuda.empty_cache()
+
+    # granite-8b, bf16 weights drawn on the card
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev, dtype=bf16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    batch = {"tokens": tokens}
+    n_tok = LM_BATCH * LM_SEQ
+    print(f"lm setup: {LM_ARCH} ({cfg.param_count() / 1e9:.3f} B "
+          f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"bf16) drawn on the card in {init_s:.2f} s; {LM_BATCH} x "
+          f"{LM_SEQ} tokens, split {LM_SPLIT} of {cfg.n_full_patterns}")
+
+    def run(codec):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm_split_infer(cfg, params, batch, LM_SPLIT, codec, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+    codecs = (boundary.FP16, boundary.INT8, boundary.INT4)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for codec in codecs:
+        out, first_s, launches = run(codec)
+        want = {"flash_attention": cfg.n_layers,
+                "quantize": int(codec.bits < 16)}
+        check(all(launches[k_] == want.get(k_, 0) for k_ in launches),
+              f"{codec.name}: {cfg.n_layers} flash_attention launches and "
+              f"{want['quantize']} quantize a run, no other kernel "
+              f"({launches})")
+        check(out.shape == (LM_BATCH, 1, cfg.vocab)
+              and bool(torch.isfinite(out).all()),
+              f"{codec.name}: finite last-token logits "
+              f"{(LM_BATCH, 1, cfg.vocab)}")
+        warm = []
+        for _ in range(3):
+            again, s_, l_ = run(codec)
+            warm.append(s_)
+            check(l_ == launches and torch.equal(again, out),
+                  f"{codec.name}: a warm run repeats the first")
+        runs[codec.name] = {"out": out, "first_s": first_s, "warm_s": warm,
+                            "launches": launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        full = lm.forward(cfg, params, batch, logits_mode="last", device=dev)
+    check(torch.equal(full, runs["fp16"]["out"]), "head plus tail through "
+          "the FP16 codec equals forward(logits_mode='last') bit for bit")
+    codec_rel = {c: float((runs[c]["out"].float() - full.float()).abs().max()
+                          / full.float().abs().max()) for c in runs}
+
+    # stages of a warm run, and the codec's kernel on the boundary
+    # activation against its plain version
+    stages = {}
+    with torch.inference_mode():
+        for codec in codecs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            act = lm_head(cfg, params, batch, LM_SPLIT, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sent = boundary.roundtrip(act, codec)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            lm_tail(cfg, params, sent, batch, LM_SPLIT, device=dev)
+            torch.cuda.synchronize()
+            stages[codec.name] = {"head": t1 - t0, "codec": t2 - t1,
+                                  "tail": time.perf_counter() - t2}
+    rows2d = act.reshape(-1, cfg.d_model)  # (16384, 4096) bf16
+    qrows = []
+    for qmax in (127, 7):
+        qq, qs = quantize(rows2d, qmax)
+        torch.cuda.synchronize()
+        rq, rs = quantize_ref(rows2d, qmax)
+        check(torch.equal(qq, rq) and torch.equal(qs, rs), f"quantize "
+              f"bit-equal to plain on the bf16 boundary activation "
+              f"{tuple(rows2d.shape)}, qmax {qmax}")
+        qms, qhost = cuda_ms(lambda: quantize(rows2d, qmax), 50)
+        qpms, qphost = cuda_ms(lambda: quantize_ref(rows2d, qmax), 10)
+        n_, d_ = rows2d.shape
+        qb_ms, qby = bound(3 * n_ * d_ + 4 * n_, 5 * n_ * d_)
+        qrows.append({"shape": [n_, d_], "dtype": "bfloat16", "qmax": qmax,
+                      "count": 1, "ms": qms, "plain_ms": qpms,
+                      "bound_ms": qb_ms, "bound_by": qby, "host_ms": qhost,
+                      "plain_host_ms": qphost})
+    del act, sent, rows2d
+
+    # batch 1 at full depth: the kernel path against use_kernel=False
+    # (reported: see LM_BLOCK_RTOL), and the kernel on layer 0's own q, k,
+    # v against its plain version, in f32 (held; the bf16 inputs upcast
+    # exactly) and in bf16 (reported: the scores reach |s| ~ 1.5e3, so
+    # f32 rounding of a near tie moves a weight more than on random data)
+    b1 = {"tokens": tokens[:1]}
+    with torch.inference_mode():
+        a = lm.forward(cfg, params, b1, logits_mode="last", device=dev)
+        b = lm.forward(cfg, params, b1, logits_mode="last", use_kernel=False,
+                       device=dev)
+        deep_off_rel = float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max())
+        x = lm.embed_in(cfg, params, b1, bf16, dev)
+        p0 = tree_map(lambda t: t[0], params["groups"][0])["attn"]
+        q, k, v = blocks.qkv_proj(cfg, p0, blocks.rms_norm(
+            x, p0["ln"], cfg.norm_eps), bf16)
+        pos = torch.arange(LM_SEQ, device=dev)[None]
+        qkv = flatten_gqa(blocks.rope(q, pos, cfg.rope_theta),
+                          blocks.rope(k, pos, cfg.rope_theta), v)
+        real = {}
+        for dtype in (torch.float32, bf16):
+            t3 = [t.to(dtype) for t in qkv]
+            got = flash_attention(*t3, causal=True)
+            want = attention_ref(*t3, causal=True)
+            err = (got.float() - want.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(1e-30))) - 7)
+            real[str(dtype).split(".")[-1]] = {
+                "max_abs_err": float(err.max()),
+                "rel_to_max": float(err.max() / want.float().abs().max()),
+                "beyond_one_ulp": int((err > ulp).sum()),
+                "max_score": float(torch.matmul(
+                    t3[0][:8].float(), t3[1][:8].float().transpose(1, 2)
+                ).abs().max()) * cfg.head_dim ** -0.5}
+    check(real["float32"]["rel_to_max"] <= ATTN_RTOL,
+          f"flash_attention within {ATTN_RTOL} of max|o| of plain on layer "
+          f"0's q, k, v {tuple(qkv[0].shape)} in f32 ({real})")
+    del params, a, b, x, q, k, v, qkv, t3, got, want, err, ulp, full
+    for r in runs.values():
+        del r["out"]
+    torch.cuda.empty_cache()
+
+    # full width cut to 2 layers, batch 1, LM_CPU_SEQ tokens, weights drawn
+    # on the card and copied bit for bit to the CPU, in f32 and in bf16:
+    # each block on one input through the kernel on the card, through
+    # use_kernel=False on the card and through the port on the CPU, then
+    # the logits on one input; the end-to-end logits are reported
+    c2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
+    tk = {"tokens": tokens[:1, :LM_CPU_SEQ]}
+    pos = torch.arange(LM_CPU_SEQ, dtype=torch.int32)[None]
+    cut, cpu_s = {}, 0.0
+    for dtype in (torch.float32, bf16):
+        name = str(dtype).split(".")[-1]
+        rtol = LM_BLOCK_RTOL[name]
+        p2 = init_params(c2, torch.Generator(device=dev).manual_seed(
+            SEED + 1), device=dev, dtype=dtype)
+        pc = tree_map(lambda t: t.cpu(), p2)  # the same bits
+        worst = {"use_kernel_false": 0.0, "cpu": 0.0}
+        with torch.inference_mode():
+            x = lm.embed_in(c2, p2, tk, dtype, dev)
+            for i in range(LM_CPU_LAYERS):
+                spec = c2.pattern[0]
+                pg, pcg = (tree_map(lambda t: t[i], t_["groups"][0])
+                           for t_ in (p2, pc))
+                y = lm.apply_block(c2, spec, pg, x, positions=pos.to(dev),
+                                   dtype=dtype)
+                y_off = lm.apply_block(c2, spec, pg, x, positions=pos.to(dev),
+                                       dtype=dtype, use_kernel=False)
+                t0 = time.perf_counter()
+                y_cpu = lm.apply_block(c2, spec, pcg, x.cpu(), positions=pos,
+                                       dtype=dtype)
+                cpu_s += time.perf_counter() - t0
+                top = float(y.float().abs().max())
+                for what, other in (("use_kernel_false", y_off),
+                                    ("cpu", y_cpu)):
+                    rel = float((other.float() - y.float().to(other.device))
+                                .abs().max()) / top
+                    worst[what] = max(worst[what], rel)
+                x = y
+            lg = lm.logits_out(c2, p2, x, dtype).float().cpu()
+            lc = lm.logits_out(c2, pc, x.cpu(), dtype).float()
+            worst["logits_cpu"] = float((lg - lc).abs().max()
+                                        / lc.abs().max())
+            ga = lm.forward(c2, p2, tk, device=dev).float().cpu()
+            t0 = time.perf_counter()
+            ca = lm.forward(c2, pc, tk, device="cpu").float()
+            cpu_s += time.perf_counter() - t0
+        cut[name] = dict(worst, end_to_end_cpu_rel=float(
+            (ga - ca).abs().max() / ca.abs().max()),
+            argmax_equal=float((ga.argmax(-1) == ca.argmax(-1)).float()
+                               .mean()),
+            last_token_equal=int(ga[0, -1].argmax()) == int(
+                ca[0, -1].argmax()))
+        del p2, pc
+        torch.cuda.empty_cache()
+    print(f"lm path: lm_split_infer({LM_ARCH}, {LM_BATCH} x {LM_SEQ}, split "
+          f"{LM_SPLIT}) launches "
+          f"{ {c: r['launches'] for c, r in runs.items()} }; codecs vs the "
+          f"forward (max |diff| / max |logit|) {codec_rel}; full depth, "
+          f"batch 1, use_kernel=False vs the kernel path {deep_off_rel:.3g} "
+          f"(reported); layer 0's attention on its own q, k, v {real}; "
+          f"{LM_CPU_LAYERS} layers at full width (card vs CPU {cpu_s:.1f} s "
+          f"on the CPU) {cut}; SDPA vs plain max |err| {lib_err:.3g}; peak "
+          f"device memory {peak_gib:.2f} GiB")
+    for name, rtol in LM_BLOCK_RTOL.items():
+        for what in ("use_kernel_false", "cpu", "logits_cpu"):
+            check(cut[name][what] <= rtol, f"{name}, {LM_CPU_LAYERS} layers "
+                  f"at full width: each block's (or the logits') "
+                  f"{what.replace('_', ' ')} output within {rtol} of its "
+                  f"largest magnitude ({cut[name][what]:.3g})")
+
+    busy = None
+    if "--profile" in argv:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev, dtype=bf16)
+        run(boundary.INT8)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_run:
+            _, wall, _ = run(boundary.INT8)
+        avg = prof_run.key_averages()
+        device_s = sum(e.self_device_time_total for e in avg
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        busy = device_s / float(np.median(runs["int8"]["warm_s"]))
+        print(f"profiled INT8 split inference: {wall:.3f} s wall, device "
+              f"time {device_s:.3f} s ({busy:.1%} of the warm run's median)")
+        print(avg.table(sort_by="self_cuda_time_total", row_limit=20))
+        del params
+        torch.cuda.empty_cache()
+
+    print(json.dumps({"e2e_lm": {
+        "arch": LM_ARCH, "layers": cfg.n_layers, "batch": LM_BATCH,
+        "seq": LM_SEQ, "split": LM_SPLIT, "tokens": n_tok,
+        "card": smi, "init_s": init_s,
+        "codecs": {c: {"first_s": r["first_s"], "warm_s": r["warm_s"],
+                       "tokens_per_s": n_tok / float(np.median(r["warm_s"])),
+                       "launches": {k_: v_ for k_, v_ in
+                                    r["launches"].items() if v_}}
+                   for c, r in runs.items()},
+        "stages_s": stages, "peak_device_gib": peak_gib,
+        "device_busy": busy, "codec_vs_forward_rel": codec_rel,
+        "full_depth_use_kernel_false_rel": deep_off_rel,
+        "layer0_attention": real, "cut_to_2_layers": cut,
+        "attention_checks": attn_rows}}))
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+           "launches": runs["fp16"]["launches"]["flash_attention"],
+           "max_abs_err": attn_rows[0]["max_abs_err"], "ms": ms,
+           "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lms, "host_ms": host, "plain_host_ms": phost,
+           "library_host_ms": lhost, "library_max_abs_err": lib_err,
+           "shape": [bh, s, dh], "dtype": "bfloat16", "causal": True,
+           "per": f"one launch at the path's shape, {cfg.n_layers} a split "
+                  "inference"}
+    return row, {"launches_lm": runs["int8"]["launches"]["quantize"],
+                 "lm_boundary": qrows}
+
 
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
@@ -867,6 +1252,8 @@ def main(argv: list[str]) -> int:
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions too
+    # bf16 products accumulate in f32 throughout, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 1. the card
     smi = subprocess.run(
@@ -1300,6 +1687,13 @@ def main(argv: list[str]) -> int:
     next(k for k in kernels if k["name"] == "quantize").update(quant_split)
     kernels.append(split_row)
     print(json.dumps(split_row))
+
+    # 8. the dense LM's split serving at granite-8b's full width and depth
+    torch.cuda.empty_cache()
+    attn_row, quant_lm = lm_path(dev, smi, argv)
+    next(k for k in kernels if k["name"] == "quantize").update(quant_lm)
+    kernels.append(attn_row)
+    print(json.dumps(attn_row))
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile

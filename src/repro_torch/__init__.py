@@ -7,5 +7,5 @@ kernels for Hopper (``repro_torch.kernels``); host-side planning stays
 float64 numpy, as in the reference. Entry points take ``device=`` and
 default to the card.
 """
-from repro_torch import (channel, core, estimator, kernels, models,  # noqa
-                         sim, weights)
+from repro_torch import (channel, configs, core, estimator,  # noqa
+                         kernels, models, sim, weights)

@@ -56,3 +56,39 @@ class SplitProfile:
             self, data_bytes=self.data_bytes * codec_ratio,
             name=f"{self.name}|codec x{codec_ratio:.3f}")
 
+
+def lm_split_profile(cfg, seq: int, batch: int, *, bytes_per_el: int = 2,
+                     privacy: np.ndarray | None = None) -> SplitProfile:
+    """Analytic profile for an assigned LM architecture split at megablock
+    boundaries. Activation size is constant in l (the d_model residual
+    stream): the transformer-specific PSO regime."""
+    L = cfg.n_layers
+    per_layer = []
+    for i in range(L):
+        b = cfg.pattern[i % len(cfg.pattern)]
+        if b.kind in ("attn", "local", "cross"):
+            attn = 2 * cfg.d_model * (cfg.n_heads + 2 * cfg.kv_heads) * (
+                cfg.head_dim) + 2 * cfg.n_heads * cfg.head_dim * cfg.d_model
+            ctx = min(seq, b.window) if b.window else seq
+            attn += 4 * cfg.n_heads * cfg.head_dim * ctx  # qk^T + av
+            ff_mult = cfg.top_k if cfg.is_moe else 1
+            ff = 6 * cfg.d_model * cfg.d_ff * ff_mult
+            per_layer.append((attn + ff) * 2 * seq * batch / 2)
+        elif b.kind == "rec":
+            w = cfg.lru_width
+            per_layer.append((2 * cfg.d_model * w * 3 + 2 * w * w * 2 +
+                              6 * cfg.d_model * cfg.d_ff) * seq * batch)
+        elif b.kind == "ssd":
+            core = 2 * cfg.d_model * (2 * cfg.d_inner) + 2 * cfg.d_inner * (
+                cfg.d_model)
+            ssd = 4 * cfg.d_inner * cfg.ssm_state * min(seq, cfg.ssm_chunk)
+            per_layer.append((core + ssd) * seq * batch)
+    flops_head = np.cumsum(per_layer)
+    data = np.full(L, seq * batch * cfg.d_model * bytes_per_el, float)
+    if privacy is None:
+        # deep layers leak less; exponential-ish decay matching Fig. 5b shape
+        privacy = 0.95 * np.exp(-2.2 * np.arange(1, L + 1) / L) + 0.20
+    return SplitProfile(
+        name=f"{cfg.name}-s{seq}b{batch}", flops_head=flops_head.astype(float),
+        data_bytes=data, privacy=np.asarray(privacy, float),
+        layer_names=[f"block{i+1}" for i in range(L)])

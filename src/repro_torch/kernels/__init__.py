@@ -8,14 +8,19 @@ tensors, and the tests and ``chip_smoke.py`` hold the kernel to it.
   featurize  fused KPM window extraction + normalisation
   lstm       fused LSTM-cell scans, fp32 and int8 (the estimator's
              temporal branch)
-  quant      rowwise symmetric int8 quantization (qmax 127 or 7)
+  quant      rowwise symmetric int8 quantization (qmax 127 or 7) of f32
+             or bf16 rows
   qmm        int8 x int8 -> int32 rowwise-scaled matrix product
   segsum     batched segment sum / max (the PRB scheduler's normalizers,
              the per-cell load)
   ssd        Mamba-2 chunked SSD scan (the recurrent estimator's mixer)
   dcor       pairwise Euclidean distances (distance correlation, the
              split-computing privacy metric)
+  flash_attention
+             online-softmax attention with causal and window masks (the
+             LM's self-attention)
 """
-from repro_torch.kernels import (dcor, featurize, lstm, qmm,  # noqa: F401
-                                 quant, segsum, ssd)
+from repro_torch.kernels import (dcor, featurize,  # noqa: F401
+                                 flash_attention, lstm, qmm, quant, segsum,
+                                 ssd)
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

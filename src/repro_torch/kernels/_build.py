@@ -38,8 +38,9 @@ _SIGNATURES = {
     "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wx, wh, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (x, q, scale, n, d, qmax, f32(1 / qmax), stream)
+    # (x, q, scale, n, d, qmax, f32(1 / qmax), stream); x f32 or bf16
     "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "repro_quantize_rows_bf16_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
     # (xq, sx, wq, sw, out, part, m, n, k, splits, stream)
     "repro_qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wxq, wxs, whq, whs, b, h_out, batch, steps, k, hidden, stream)
@@ -53,10 +54,17 @@ _SIGNATURES = {
                       _P],
     # (x, work, out, n, d, tile, chunk, splits, stream)
     "repro_pairwise_dists_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (q, k, v, o, bh, sq, sk, dh, causal, window, scale, stream); bf16 or
+    # f32
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _P],
 }
 
 LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
-            "lstm_scan_q": 0, "segsum": 0, "ssd": 0, "pairwise_dists": 0}
+            "lstm_scan_q": 0, "segsum": 0, "ssd": 0, "pairwise_dists": 0,
+            "flash_attention": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -1,5 +1,5 @@
-// Rowwise symmetric integer quantization: x (n, d) f32 -> q (n, d) int8 and
-// one f32 scale a row,
+// Rowwise symmetric integer quantization: x (n, d) f32 or bf16 -> q (n, d)
+// int8 and one f32 scale a row,
 //   scale = max(amax, 1e-8) * recip,    recip = f32(1 / qmax)
 //   q     = clip(round_half_even(x / scale), -qmax - 1, qmax)
 // with a true IEEE division and round-half-even (rintf, as jnp.round and
@@ -28,7 +28,11 @@
 // codec's channel rows) take one warp each, eight to a block. Fusing the
 // quantization into the producer of the activations (the conv trunk, or
 // qmm's load) would save the f32 round trip through device memory; that is
-// later work.
+// later work. bf16 rows (the LM's boundary activation, (16384, 4096) at
+// batch 4 x 4096 tokens) are read as bf16 and widened in registers, which
+// is exact, so the codes are those of the f32 values and no f32 copy of the
+// activation is made.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +53,23 @@ __device__ __forceinline__ int8_t code(float x, float scale, float hi) {
   return (int8_t)__float2int_rn(v);
 }
 
+__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+// values 4i .. 4i + 3 of a row that starts 16-byte (f32) or 8-byte (bf16)
+// aligned
+__device__ __forceinline__ float4 ld4(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p, int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];  // little-endian
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ float warp_max(float m) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -56,7 +77,8 @@ __device__ __forceinline__ float warp_max(float m) {
   return m;
 }
 
-__global__ void quant_rows_warp(const float* __restrict__ x,
+template <typename T>
+__global__ void quant_rows_warp(const T* __restrict__ x,
                                 int8_t* __restrict__ q,
                                 float* __restrict__ scale, int64_t n, int d,
                                 float hi, float recip) {
@@ -64,35 +86,35 @@ __global__ void quant_rows_warp(const float* __restrict__ x,
   const int64_t row =
       (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= n) return;  // the whole warp leaves together
-  const float* xr = x + row * d;
+  const T* xr = x + row * d;
   float m = 0.0f;
-  for (int i = lane; i < d; i += 32) m = fmaxf(m, fabsf(xr[i]));
+  for (int i = lane; i < d; i += 32) m = fmaxf(m, fabsf(ld(xr, i)));
   const float s = row_scale(warp_max(m), recip);
   int8_t* qr = q + row * d;
-  for (int i = lane; i < d; i += 32) qr[i] = code(xr[i], s, hi);
+  for (int i = lane; i < d; i += 32) qr[i] = code(ld(xr, i), s, hi);
   if (lane == 0) scale[row] = s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-    quant_rows_block(const float* __restrict__ x, int8_t* __restrict__ q,
+    quant_rows_block(const T* __restrict__ x, int8_t* __restrict__ q,
                      float* __restrict__ scale, int d, bool vec, float hi,
                      float recip) {
   __shared__ float red[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t row = blockIdx.x;
-  const float* xr = x + row * d;
+  const T* xr = x + row * d;
   int8_t* qr = q + row * d;
   float m = 0.0f;
   if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
     for (int i = threadIdx.x; i < d / 4; i += blockDim.x) {
-      const float4 v = x4[i];
+      const float4 v = ld4(xr, i);
       m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
                          fmaxf(fabsf(v.z), fabsf(v.w))));
     }
   } else {
     for (int i = threadIdx.x; i < d; i += blockDim.x)
-      m = fmaxf(m, fabsf(xr[i]));
+      m = fmaxf(m, fabsf(ld(xr, i)));
   }
   m = warp_max(m);
   if (lane == 0) red[warp] = m;
@@ -105,25 +127,22 @@ __global__ void __launch_bounds__(kBlockThreads)
   __syncthreads();
   const float s = row_scale(red[0], recip);
   if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
     char4* q4 = reinterpret_cast<char4*>(qr);
     for (int i = threadIdx.x; i < d / 4; i += blockDim.x) {
-      const float4 v = x4[i];
+      const float4 v = ld4(xr, i);
       q4[i] = make_char4(code(v.x, s, hi), code(v.y, s, hi),
                          code(v.z, s, hi), code(v.w, s, hi));
     }
   } else {
     for (int i = threadIdx.x; i < d; i += blockDim.x)
-      qr[i] = code(xr[i], s, hi);
+      qr[i] = code(ld(xr, i), s, hi);
   }
   if (threadIdx.x == 0) scale[row] = s;
 }
 
-}  // namespace
-
-extern "C" int repro_quantize_rows_s8(const float* x, int8_t* q, float* scale,
-                                      int64_t n, int64_t d, int64_t qmax,
-                                      float recip, void* stream) {
+template <typename T>
+int quantize_rows(const T* x, int8_t* q, float* scale, int64_t n, int64_t d,
+                  int64_t qmax, float recip, void* stream) {
   if (n < 1 || d < 1 || d > 0x7fffffff || qmax < 1 || qmax > 127)
     return (int)cudaErrorInvalidValue;
   const float hi = (float)qmax;
@@ -132,15 +151,31 @@ extern "C" int repro_quantize_rows_s8(const float* x, int8_t* q, float* scale,
     const int64_t rows_per_block = kWarpThreads / 32;
     const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    quant_rows_warp<<<(unsigned)blocks, kWarpThreads, 0, s>>>(
+    quant_rows_warp<T><<<(unsigned)blocks, kWarpThreads, 0, s>>>(
         x, q, scale, n, (int)d, hi, recip);
   } else {
     if (n > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    // rows of d % 4 == 0 values stay 16-byte aligned from an aligned base
-    const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+    // rows of d % 4 == 0 values stay aligned for 4-value loads from an
+    // aligned base
+    const bool vec = d % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0 &&
                      (uintptr_t)q % 4 == 0;
-    quant_rows_block<<<(unsigned)n, kBlockThreads, 0, s>>>(
+    quant_rows_block<T><<<(unsigned)n, kBlockThreads, 0, s>>>(
         x, q, scale, (int)d, vec, hi, recip);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_quantize_rows_s8(const float* x, int8_t* q, float* scale,
+                                      int64_t n, int64_t d, int64_t qmax,
+                                      float recip, void* stream) {
+  return quantize_rows(x, q, scale, n, d, qmax, recip, stream);
+}
+
+extern "C" int repro_quantize_rows_bf16_s8(const __nv_bfloat16* x, int8_t* q,
+                                           float* scale, int64_t n, int64_t d,
+                                           int64_t qmax, float recip,
+                                           void* stream) {
+  return quantize_rows(x, q, scale, n, d, qmax, recip, stream);
 }

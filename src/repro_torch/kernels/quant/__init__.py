@@ -1,4 +1,6 @@
-"""Rowwise symmetric integer quantization (int8 codes, ``qmax`` 127 or 7).
+"""Rowwise symmetric integer quantization (int8 codes, ``qmax`` 127 or 7)
+of f32 or bf16 rows (a bf16 value upcasts to f32 exactly, so both give the
+codes of the f32 values).
 
 ``quantize`` is the wrapper of the CUDA kernel ``csrc/quant.cu``;
 ``quantize_ref`` is its plain PyTorch version, which the wrapper runs for
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 I8 = torch.int8
 SCALE_FLOOR = 1e-8
 
@@ -41,8 +44,8 @@ def _check(x, qmax):
                          f"{qmax}")
     if x.dim() != 2:
         raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
-    if x.dtype != F32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dtype not in (F32, BF16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if x.shape[1] < 1:
@@ -50,7 +53,7 @@ def _check(x, qmax):
 
 
 def quantize(x: torch.Tensor, qmax: int = 127):
-    """The quantize kernel: contiguous f32 (n, d) -> (q int8 (n, d),
+    """The quantize kernel: contiguous f32 or bf16 (n, d) -> (q int8 (n, d),
     scale f32 (n, 1)), codes in [-qmax - 1, qmax].
 
     Tensors on the CPU run ``quantize_ref``; on a card the CUDA kernel
@@ -67,8 +70,10 @@ def quantize(x: torch.Tensor, qmax: int = 127):
     if n == 0:
         return q, scale
     lib = _build.library()
+    entry = (lib.repro_quantize_rows_bf16_s8 if x.dtype == BF16
+             else lib.repro_quantize_rows_s8)
     with torch.cuda.device(x.device):
-        rc = lib.repro_quantize_rows_s8(
+        rc = entry(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), n, d, qmax,
             float(np.float32(1.0 / qmax)),
             torch.cuda.current_stream().cuda_stream)
@@ -78,8 +83,11 @@ def quantize(x: torch.Tensor, qmax: int = 127):
 
 
 def quantize_rows(x: torch.Tensor, qmax: int = 127):
-    """x (..., d) f32 -> (q int8 (..., d), scale f32 (..., 1)), one scale
-    per row of the last axis, on the input's device."""
+    """x (..., d) -> (q int8 (..., d), scale f32 (..., 1)), one scale per
+    row of the last axis, on the input's device. bf16 goes to the kernel as
+    it is; any other type is cast to f32 first."""
     shape = x.shape
-    q, s = quantize(x.to(F32).reshape(-1, shape[-1]).contiguous(), qmax)
+    if x.dtype != BF16:
+        x = x.to(F32)
+    q, s = quantize(x.reshape(-1, shape[-1]).contiguous(), qmax)
     return q.reshape(shape), s.reshape(*shape[:-1], 1)

@@ -18,7 +18,7 @@ worth a kernel): scanning it over S steps from a zero state reproduces
 the sequence pass.
 
 The kernel takes f32 only; bf16 inputs and the LM stack's widths wait for
-ROADMAP.md module queue item 14.
+ROADMAP.md module queue item 17 (the SSD LM).
 """
 from __future__ import annotations
 
@@ -110,7 +110,7 @@ def _check(x, dt, A, Bm, Cm):
         if t.dtype != F32:
             raise TypeError(
                 f"the ssd kernel takes float32 only, {name} is {t.dtype}: "
-                "bf16 waits for ROADMAP.md module queue item 14")
+                "bf16 waits for ROADMAP.md module queue item 17")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():

@@ -14,6 +14,10 @@ leaves are (int8 codes, f32 scales) tuples.
 (``{"op{i}_w": HWIO kernel or (in, out) fc weight, "op{i}_b": (C,)}``);
 the forward permutes the kernels at use, so names and layouts carry over
 as they are.
+``lm_params_from_reference`` takes the reference's LM tree
+(``jax.tree.map(np.asarray, repro.models.init_params(cfg, key))``): the
+same keys, the stacked ``groups`` and the ``rem`` tuples, the same
+layouts, optionally cast (``dtype=torch.bfloat16`` as served).
 ``load_reference_checkpoint`` reads the reference checkpoint format
 directly — a ``manifest.json`` plus one ``.npy`` per leaf, keyed by
 ``jax.tree_util.keystr`` paths such as ``['lstm']['wx']`` — without JAX.
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.models.template import tree_map
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -87,6 +92,19 @@ def vgg_params_from_reference(tree: dict, *, device="cuda") -> dict:
             raise ValueError(f"not a VGG parameter name: {name!r}")
         out[name] = _tensor(leaf, np.float32, dev)
     return out
+
+
+def lm_params_from_reference(tree: dict, *, device="cuda",
+                             dtype: torch.dtype | None = None) -> dict:
+    """The reference's LM parameter tree as numpy f32 arrays -> the same
+    tree of tensors on ``device`` (in ``dtype`` if given)."""
+    dev = resolve_device(device)
+
+    def leaf(node):
+        t = _tensor(node, np.float32, dev)
+        return t if dtype is None else t.to(dtype)
+
+    return tree_map(leaf, tree)
 
 
 def load_reference_checkpoint(step_dir, *, device="cuda") -> dict:

@@ -28,8 +28,13 @@ from repro_torch.sim import (SchedulerConfig, cell_load,
                              coupled_interference_mw, estimate_fleet,
                              ring_coupling, run_controllers, run_scheduled,
                              scheduler_init, simulate_cells, simulate_fleet)
-from repro_torch.weights import (params_from_reference,
+from repro_torch.weights import (lm_params_from_reference,
+                                 params_from_reference,
                                  vgg_params_from_reference)
+from repro_torch.configs import get_config
+from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
+from repro_torch.models import init_params
+from repro_torch.models import lm
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 MODULES = [
@@ -50,7 +55,10 @@ MODULES = [
     "repro_torch.estimator.serve", "repro_torch.estimator.ssm",
     "repro_torch.estimator.train", "repro_torch.weights",
     "repro_torch.sim", "repro_torch.sim.engine", "repro_torch.sim.sched",
-    "repro_torch.sim.cells"]
+    "repro_torch.sim.cells", "repro_torch.configs",
+    "repro_torch.configs.base", "repro_torch.kernels.flash_attention",
+    "repro_torch.models.blocks", "repro_torch.models.lm",
+    "repro_torch.models.template"]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -91,6 +99,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     feats = np.zeros((2, 5, c.n_feats), np.float32)
     vp = init_vgg(REDUCED, torch.Generator().manual_seed(0), device="cpu")
     img = np.zeros((1, 32, 32, 3), np.float32)
+    lcfg = get_config("granite-8b").reduced()
+    lp = init_params(lcfg, torch.Generator().manual_seed(0), device="cpu")
+    tok = {"tokens": np.zeros((1, 16), np.int32)}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: simulate_fleet(ep, table, prof, cfg),
@@ -127,6 +138,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: vgg_split_infer(REDUCED, vp, img, 17),
         lambda: vgg_params_from_reference(
             {"op1_b": np.zeros(2, np.float32)}),
+        lambda: init_params(lcfg, torch.Generator()),
+        lambda: lm.forward(lcfg, lp, tok),
+        lambda: lm_head(lcfg, lp, tok, 1),
+        lambda: lm_tail(lcfg, lp, torch.zeros((1, 16, 64)), tok, 1),
+        lambda: lm_split_infer(lcfg, lp, tok, 1),
+        lambda: lm_params_from_reference({"embed": np.zeros((2, 2),
+                                                            np.float32)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):

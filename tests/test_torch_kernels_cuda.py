@@ -17,6 +17,8 @@ from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.dcor import (dcor_kernel, pairwise_dists,
                                       pairwise_dists_ref)
 from repro_torch.kernels.featurize import featurize, featurize_ref
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention)
 from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
                                       lstm_scan_q_ref, lstm_scan_ref)
 from repro_torch.kernels.qmm import qmm, qmm_ref, quantize_weight
@@ -24,6 +26,11 @@ from repro_torch.kernels.quant import quantize, quantize_ref
 from repro_torch.kernels.segsum import (segment_reduce_batched,
                                         segment_reduce_ref)
 from repro_torch.kernels.ssd import ssd, ssd_ref
+from repro_torch.configs import get_config
+from repro_torch.core import boundary
+from repro_torch.core.splitting import lm_split_infer
+from repro_torch.models import init_params, lm
+from repro_torch.models.template import tree_map
 from repro_torch.models.vgg import (FULL, REDUCED, forward, init_vgg,
                                     vgg_split_profile)
 from repro_torch.sim import (SchedulerConfig, attach_ring,
@@ -348,3 +355,82 @@ def test_cells_ssm_slice_on_card_matches_cpu(card):
     np.testing.assert_allclose(got.fleet.est_tp, want.fleet.est_tp,
                                rtol=1e-4, atol=1e-4)
     assert (got.fleet.splits == want.fleet.splits).mean() >= 0.99
+
+
+def _attention_close(got, want):
+    """f32: within 1e-5 of max|o|. bf16: each element within one bf16 ulp
+    of its own magnitude (a rounding flipped by the other order of the f32
+    sums), over a floor of 1e-5 of max|o| for elements near 0."""
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().max()
+    if want.dtype == torch.float32:
+        return bool(err.max() <= 1e-5 * top)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(1e-30))) - 7)
+    return bool((err <= ulp + 1e-5 * top).all())
+
+
+@pytest.mark.parametrize("bh,s,dh,dtype,causal,window", [
+    (8, 256, 64, torch.float32, True, 0),
+    (8, 256, 64, torch.float32, False, 8),
+    (8, 256, 128, torch.float32, True, 100),
+    (8, 256, 64, torch.bfloat16, True, 8),
+    (8, 256, 80, torch.bfloat16, False, 0),
+    (8, 256, 256, torch.bfloat16, True, 0),
+    (8, 256, 256, torch.float32, True, 0),
+    (4, 100, 128, torch.bfloat16, True, 0),
+    (4, 16, 64, torch.float32, True, 0),
+    (32, 2048, 128, torch.bfloat16, True, 1024),
+    (32, 1024, 80, torch.bfloat16, False, 0)])
+def test_flash_attention_kernel_matches_plain(card, bh, s, dh, dtype, causal,
+                                              window):
+    g = torch.Generator(device=card).manual_seed(bh + s + dh)
+    q, k, v = (torch.randn((bh, s, dh), generator=g, device=card).to(dtype)
+               for _ in range(3))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert _attention_close(got, attention_ref(q, k, v, causal=causal,
+                                               window=window))
+
+
+def test_flash_attention_kernel_refuses_other_head_dims(card):
+    q = torch.zeros((2, 16, 16), device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("n,d", [(16384, 4096), (37, 200), (5, 4099)])
+@pytest.mark.parametrize("qmax", [127, 7])
+def test_quantize_kernel_bf16_bit_equal(card, n, d, qmax):
+    g = torch.Generator(device=card).manual_seed(n + d)
+    x = (torch.randn((n, d), generator=g, device=card) * 7).to(
+        torch.bfloat16)
+    q, s = quantize(x, qmax)
+    torch.cuda.synchronize()
+    rq, rs = quantize_ref(x, qmax)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+def test_lm_slice_on_card_matches_cpu(card):
+    """granite-8b reduced with its head dim at 64 (a kernel head dim), bf16
+    weights copied bit for bit: split inference through each codec on the
+    card (the kernel, 2 launches a run) against the port on the CPU."""
+    cfg = get_config("granite-8b").reduced(head_dim=64)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                      dtype=torch.bfloat16)
+    gpu = tree_map(lambda t: t.to(card), cpu)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)).astype(np.int32)}
+    for codec in (boundary.FP16, boundary.INT8, boundary.INT4):
+        reset_launches()
+        got = lm_split_infer(cfg, gpu, batch, 1, codec)
+        assert LAUNCHES["flash_attention"] == cfg.n_layers
+        assert LAUNCHES["quantize"] == (codec.bits < 16)
+        want = lm_split_infer(cfg, cpu, batch, 1, codec, device="cpu")
+        err = (got.cpu().float() - want.float()).abs().max()
+        assert err <= 0.05 * want.float().abs().max(), codec
+    full = lm.forward(cfg, gpu, batch, logits_mode="last")
+    assert torch.equal(full, lm_split_infer(cfg, gpu, batch, 1))

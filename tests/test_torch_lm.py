@@ -1,0 +1,187 @@
+"""Port parity for the dense LM: configurations, the parameter tree, the
+norm, rope and the three non-kernel attention cores, and the full forward
+of the five dense attention configs at ``reduced()`` against the JAX
+package, with the same weights, with the attention kernel routed in
+(``use_kernel=True``, the reference's ``USE_PALLAS_ATTENTION`` on, its
+Pallas kernel in interpret mode) and out.
+
+Tolerances, relative to the largest |logit|:
+- f32: 2e-5, and each block's own output to 1e-5
+  (``test_torch_lm_blocks.py``). The forward amplifies a block's 1e-6
+  difference: the random weights' scores are large, so the softmax is
+  peaked and steep. gemma3-27b gets 1e-4: its 7 reduced layers of local
+  attention amplify the most, and there the JAX package's own two
+  attention routes differ by more than 2e-5.
+- bf16: 0.05, the JAX package's own bound between its two attention
+  routes (``test_kernel_integration.py``), at that test's shape (2 x 16
+  tokens). gemma3-27b is held block by block instead, each block's output
+  within two bf16 ulps of its largest magnitude: its bf16 forward loses
+  any 1-ulp difference within a few layers, and the JAX package's own
+  two routes differ there by more than 0.05.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import list_archs as ref_list_archs
+from repro.models import blocks as ref_blocks
+from repro.models import abstract_params as ref_abstract_params
+from repro.models import init_params as ref_init_params
+from repro.models import lm as ref_lm
+from repro_torch.configs import get_config, list_archs
+from repro_torch.models import init_params, lm
+from repro_torch.models.template import tree_map
+from repro_torch.weights import lm_params_from_reference
+
+DENSE = ["granite-8b", "stablelm-1.6b", "qwen2-72b", "gemma3-27b",
+         "hubert-xlarge"]
+LATER = {"mixtral-8x22b": "18", "llama4-scout-17b-a16e": "18",
+         "llama-3.2-vision-90b": "19", "recurrentgemma-2b": "19",
+         "mamba2-370m": "17"}
+F32_RTOL = {"gemma3-27b": 1e-4}  # the others 2e-5
+BF16_RTOL = 0.05
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _as_dict(cfg):
+    d = dataclasses.asdict(cfg)
+    d["pattern"] = [dataclasses.asdict(b) for b in cfg.pattern]
+    return d
+
+
+@pytest.mark.parametrize("name", ref_list_archs())
+def test_configs_match_reference(name):
+    assert list_archs() == ref_list_archs()
+    cfg, ref = get_config(name), ref_get_config(name)
+    assert _as_dict(cfg) == _as_dict(ref)
+    assert _as_dict(cfg.reduced()) == _as_dict(ref.reduced())
+    assert cfg.param_count() == ref.param_count()
+    assert (cfg.n_full_patterns, len(cfg.remainder)) == (
+        ref.n_full_patterns, len(ref.remainder))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(name, seed=0):
+    """The reduced config in both packages and one set of weights made from
+    a seed: the port's init as numpy arrays, which is the reference's tree
+    (the JAX forward takes it as it is)."""
+    cfg = get_config(name).reduced()
+    tree = tree_map(lambda t: t.numpy(), init_params(
+        cfg, torch.Generator().manual_seed(seed), device="cpu"))
+    return (ref_get_config(name).reduced(), cfg,
+            jax.tree.map(jnp.asarray, tree), tree)
+
+
+def _batch(cfg, seed=0, S=16):
+    rng = np.random.default_rng(seed)
+    if cfg.frame_input_dim:
+        return {"frames": rng.normal(size=(2, S, cfg.frame_input_dim))
+                .astype(np.float32)}
+    return {"tokens": rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)}
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "gemma3-27b",
+                                  "hubert-xlarge"])
+def test_params_from_reference_keep_the_tree(name):
+    """The reference's tree (its abstract params: keys, tuples, shapes) is
+    the port's, and ``lm_params_from_reference`` carries a reference init
+    over leaf for leaf."""
+    ref_cfg = ref_get_config(name).reduced()
+    cfg = get_config(name).reduced()
+    want = jax.tree.map(lambda s: tuple(s.shape),
+                        ref_abstract_params(ref_cfg))
+    own = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert tree_map(lambda x: tuple(x.shape), own) == want
+    if name != "granite-8b":
+        return
+    tree = jax.tree.map(np.asarray,
+                        ref_init_params(ref_cfg, jax.random.PRNGKey(0)))
+    got = lm_params_from_reference(tree, device="cpu")
+    assert isinstance(got["groups"], tuple) and isinstance(got["rem"], tuple)
+    flat_got, flat_want = [], []
+    tree_map(flat_got.append, got)
+    jax.tree.map(flat_want.append, tree)
+    assert len(flat_got) == len(flat_want)
+    for a, b in zip(flat_got, flat_want):
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), b)
+    bf = lm_params_from_reference(tree, device="cpu", dtype=torch.bfloat16)
+    assert bf["embed"].dtype == torch.bfloat16
+
+
+def test_init_formulas_match_reference():
+    """Zero norms and biases, unit-variance embeddings, fan-in normals
+    with the fan at shape[-2] (H for wq): the reference's init."""
+    cfg = get_config("stablelm-1.6b").reduced()
+    p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    a = p["groups"][0]["attn"]
+    assert not a["ln"].any() and not a["bq"].any()
+    assert abs(float(p["embed"].std()) - 1.0) < 0.05
+    for w, fan in ((a["wq"], cfg.n_heads), (a["wo"], cfg.head_dim),
+                   (p["groups"][0]["ffn"]["wd"], cfg.d_ff)):
+        assert abs(float(w.std()) * fan ** 0.5 - 1.0) < 0.1
+
+
+def _ref_forward(ref_cfg, rp, batch, dtype, pallas):
+    ref_blocks.USE_PALLAS_ATTENTION = pallas
+    try:
+        out, _, _ = ref_lm.forward(ref_cfg, rp, batch, dtype=dtype,
+                                   remat="none")
+    finally:
+        ref_blocks.USE_PALLAS_ATTENTION = False
+    return np.asarray(out.astype(jnp.float32))
+
+
+# gemma3-27b in bf16 is held block by block (test_torch_lm_blocks.py)
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("name,dtype", [
+    (n, d) for n in DENSE for d in DTYPES
+    if (n, d) != ("gemma3-27b", "bfloat16")])
+def test_forward_matches_reference(name, dtype, use_kernel):
+    jdt, tdt = DTYPES[dtype]
+    ref_cfg, cfg, rp, tree = _reference(name)
+    batch = _batch(cfg)
+    want = _ref_forward(ref_cfg, rp, batch, jdt, use_kernel)
+    params = lm_params_from_reference(tree, device="cpu")
+    got = lm.forward(cfg, params, batch, dtype=tdt, use_kernel=use_kernel,
+                     device="cpu")
+    assert got.shape == want.shape == (2, 16, cfg.vocab)
+    assert got.dtype == (torch.float32 if cfg.logit_softcap else tdt)
+    rtol = F32_RTOL.get(name, 2e-5) if dtype == "float32" else BF16_RTOL
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= rtol, err
+    last = lm.forward(cfg, params, batch, dtype=tdt, use_kernel=use_kernel,
+                      logits_mode="last", device="cpu")
+    # the logits product of one row may round otherwise than of sixteen
+    assert ((last - got[:, -1:]).abs().max()
+            <= 1e-6 * got.abs().max()), name
+
+
+@pytest.mark.parametrize("name", sorted(LATER))
+def test_not_ported_configs_raise(name):
+    cfg = get_config(name).reduced()
+    match = f"queue item {LATER[name]}"
+    with pytest.raises(NotImplementedError, match=match):
+        lm.model_template(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        lm.forward(cfg, {}, {"tokens": np.zeros((1, 4), np.int32)},
+                   device="cpu")
+
+
+def test_decode_mode_raises():
+    cfg = get_config("granite-8b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue item 20"):
+        lm.forward(cfg, params, _batch(cfg), mode="decode", device="cpu")
+    with pytest.raises(ValueError, match="logits_mode"):
+        lm.forward(cfg, params, _batch(cfg), logits_mode="first",
+                   device="cpu")
