@@ -4,7 +4,7 @@
 In order:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels (nine) from the sources in this
-     checkout;
+     checkout, and prints the build's seconds (each source's in its log);
   3. holds each kernel of the fp32 and int8 paths against its plain
      PyTorch version on the card, at the shapes of its path (128 UEs x a
      16-period chunk: B = 2048 estimator rows; the int8 path's fc in
@@ -42,8 +42,9 @@ In order:
      (36 layers, d 4096, 32 q heads over 8 kv heads, dh 128; bf16 weights
      seeded on the card): the flash_attention kernel against its plain
      version at the path's shape (128, 4096, 128) bf16 causal and at f32,
-     window-1024, dh-80 (non-causal) and dh-64 cases; ``lm_split_infer``
-     of 4 x 4096 tokens at split 18 through the FP16, INT8 and INT4 codecs
+     window-1024, dh-80 (non-causal), dh-64, dh-256 and ragged (S 100)
+     cases; ``lm_split_infer`` of 4 x 4096 tokens at split 18 through the
+     FP16, INT8 and INT4 codecs
      (cold, then three warm runs, 36 flash_attention launches a run and
      one quantize launch an integer codec), the codec's quantize kernel on
      the bf16 boundary activation against its plain version, head plus
@@ -51,8 +52,9 @@ In order:
      against its plain version, and at full width cut to 2 layers each
      block through the kernel, through ``use_kernel=False`` and through
      the port on the CPU on one input (f32 and bf16), kernel timings
-     (``scaled_dot_product_attention`` as the yardstick) and an ``e2e_lm``
-     line;
+     (``scaled_dot_product_attention`` as the yardstick; beside the
+     bound, the bf16 kernel's design floor of Q.K^T once and P.V three
+     times) and an ``e2e_lm`` line;
   9. prints the ``{"kernels": [...]}`` line and, last,
      ``{"ok": true, "device": {...}}``.
 
@@ -60,8 +62,10 @@ Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 
-    python3 chip_smoke.py            # what the card check runs
-    python3 chip_smoke.py --profile  # also: a torch.profiler breakdown
+    python3 chip_smoke.py              # what the card check runs
+    python3 chip_smoke.py --profile    # also: a torch.profiler breakdown
+    python3 chip_smoke.py --attention  # only flash_attention's checks and
+                                       # times (no ok line)
 """
 from __future__ import annotations
 
@@ -125,7 +129,9 @@ ATTN_CHECKS = [(128, 4096, 128, "bfloat16", True, 0),
                (32, 1024, 128, "float32", True, 0),
                (32, 4096, 128, "bfloat16", True, 1024),
                (32, 1024, 80, "bfloat16", False, 0),
-               (32, 1024, 64, "bfloat16", True, 0)]
+               (32, 1024, 64, "bfloat16", True, 0),
+               (8, 1024, 256, "bfloat16", True, 0),
+               (4, 100, 128, "bfloat16", True, 0)]
 # f32: within 1e-5 of max|o|. bf16: each element within one bf16 ulp of its
 # own magnitude (the f32 sums run in another order, so a rounding can
 # flip), over a floor of the same 1e-5 of max|o| for elements near 0
@@ -900,31 +906,15 @@ def attention_work(bh: int, s: int, dh: int, nbytes_el: int,
     return 4 * bh * s * dh * nbytes_el, flops // 2 if causal else flops
 
 
-def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
-    """The dense LM's split serving at granite-8b's full width and depth:
-    the flash_attention kernel against its plain version, split inference
-    through the three codecs (cold, then three warm runs) with its launch
-    counts, head plus tail against the forward, the kernel path against
-    ``use_kernel=False``, the card against the port on the CPU (2 layers),
-    timings and the ``e2e_lm`` line. Returns the flash_attention row of
-    the kernels line and the quantize kernel's LM boundary timing."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.core import boundary
-    from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
-    from repro_torch.kernels import LAUNCHES, reset_launches
+def attention_kernel(dev) -> tuple[list, dict]:
+    """flash_attention against its plain version at every ATTN_CHECKS case,
+    then timed at the LM path's shape (the first case) beside its plain
+    version and PyTorch's fused attention. Returns the checks' rows and the
+    timings."""
     from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention,
-                                                     flatten_gqa)
-    from repro_torch.kernels.quant import quantize, quantize_ref
-    from repro_torch.models import blocks, init_params, lm
-    from repro_torch.models.template import tree_map
+                                                     flash_attention)
 
-    bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED)
-
-    # the kernel against its plain version
     attn_rows = []
     for bh, s, dh, dt, causal, window in ATTN_CHECKS:
         dtype = getattr(torch, dt)
@@ -964,8 +954,45 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     lms, lhost = cuda_ms(sdpa, 20)
     nbytes, flops = attention_work(bh, s, dh, 2, True)
     b_ms, by = bound(nbytes, 0.0, bf16_ops=flops)
+    # the bf16 kernel's own floor: Q.K^T once and P.V three times (P as
+    # three bf16 pieces) on the tensor cores, twice the function's work
+    floor_ms, _ = bound(0.0, 0.0, bf16_ops=2 * flops)
     del q, k, v, q4, k4, v4, path_in
     torch.cuda.empty_cache()
+    timing = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+              "design_floor_ms": floor_ms, "library_ms": lms,
+              "host_ms": host, "plain_host_ms": phost,
+              "library_host_ms": lhost, "library_max_abs_err": lib_err,
+              "shape": [bh, s, dh]}
+    print(f"flash_attention at {(bh, s, dh)} bf16 causal: {ms:.4f} ms "
+          f"(bound {b_ms:.4f} ms, {by}; design floor {floor_ms:.4f} ms), "
+          f"plain {pms:.3f} ms, SDPA {lms:.4f} ms")
+    return attn_rows, timing
+
+
+def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
+    """The dense LM's split serving at granite-8b's full width and depth:
+    the flash_attention kernel against its plain version, split inference
+    through the three codecs (cold, then three warm runs) with its launch
+    counts, head plus tail against the forward, the kernel path against
+    ``use_kernel=False``, the card against the port on the CPU (2 layers),
+    timings and the ``e2e_lm`` line. Returns the flash_attention row of
+    the kernels line and the quantize kernel's LM boundary timing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import boundary
+    from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flatten_gqa)
+    from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.models import blocks, init_params, lm
+    from repro_torch.models.template import tree_map
+
+    bf16 = torch.bfloat16
+    attn_rows, timing = attention_kernel(dev)
 
     # granite-8b, bf16 weights drawn on the card
     cfg = get_config(LM_ARCH)
@@ -1160,7 +1187,8 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
           f"batch 1, use_kernel=False vs the kernel path {deep_off_rel:.3g} "
           f"(reported); layer 0's attention on its own q, k, v {real}; "
           f"{LM_CPU_LAYERS} layers at full width (card vs CPU {cpu_s:.1f} s "
-          f"on the CPU) {cut}; SDPA vs plain max |err| {lib_err:.3g}; peak "
+          f"on the CPU) {cut}; SDPA vs plain max |err| "
+          f"{timing['library_max_abs_err']:.3g}; peak "
           f"device memory {peak_gib:.2f} GiB")
     for name, rtol in LM_BLOCK_RTOL.items():
         for what in ("use_kernel_false", "cpu", "logits_cpu"):
@@ -1207,11 +1235,8 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
            "launches": runs["fp16"]["launches"]["flash_attention"],
-           "max_abs_err": attn_rows[0]["max_abs_err"], "ms": ms,
-           "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
-           "library_ms": lms, "host_ms": host, "plain_host_ms": phost,
-           "library_host_ms": lhost, "library_max_abs_err": lib_err,
-           "shape": [bh, s, dh], "dtype": "bfloat16", "causal": True,
+           "max_abs_err": attn_rows[0]["max_abs_err"], **timing,
+           "dtype": "bfloat16", "causal": True,
            "per": f"one launch at the path's shape, {cfg.n_layers} a split "
                   "inference"}
     return row, {"launches_lm": runs["int8"]["launches"]["quantize"],
@@ -1272,6 +1297,11 @@ def main(argv: list[str]) -> int:
     n_src = len(list(_build.CSRC.glob("*.cu")))
     print(f"build: {build_s:.2f} s (nvcc, {n_src} sources in parallel)")
     print(_build.build_log.strip())
+    if "--attention" in argv:  # the attention kernel's checks and times
+        rows, timing = attention_kernel(dev)
+        print(json.dumps({"flash_attention": dict(timing, card=smi,
+                                                  checks=rows)}))
+        return 0
 
     # the main path's inputs: a mixed S0-S3 episode at the paper's width,
     # the fig6 table (benchmarks/fig6_adaptive.py::fig6_table) and seeded

@@ -5,7 +5,8 @@ library with a plain C interface, on first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout. The library's
 name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads the existing library. The sources compile
-in parallel, one ``nvcc`` each, then link once.
+in parallel, one ``nvcc`` each (``build_log`` holds each one's output and
+seconds), then link once.
 
 Never add ``--use_fast_math``, ``-prec-div=false`` or ``-ftz=true`` here:
 the featurize kernel is pinned bit-equal to the true-division reference.
@@ -22,6 +23,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -99,13 +102,17 @@ def _build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     own = f"{tag}_{os.getpid()}"  # concurrent builders never share a file
     objs = [BUILD_DIR / f"{src.stem}_{own}.o" for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
-                               str(obj)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources, objs)]
-    logs = [(src.name, p.communicate()[0], p.returncode)
-            for src, p in zip(sources, procs)]
-    for name, out, rc in logs:
+
+    def compile_one(src, obj):
+        t0 = time.perf_counter()
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                            str(obj)], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        return src.name, r.stdout, r.returncode, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        logs = list(pool.map(compile_one, sources, objs))
+    for name, out, rc, _ in logs:
         if rc:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
     tmp = BUILD_DIR / f".{lib.name}.{own}"
@@ -117,7 +124,8 @@ def _build() -> Path:
     if link.returncode:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, lib)  # atomic: a reader sees no half-written library
-    build_log = "".join(f"== {name}\n{out}" for name, out, _ in logs)
+    build_log = "".join(f"== {name} ({sec:.1f} s)\n{out}"
+                        for name, out, _, sec in logs)
     return lib
 
 

@@ -7,13 +7,18 @@ positions; the output is (BH, Sq, dh) in q's dtype. Scores, the softmax and
 both products are f32, and P stays f32 before P.V (the reference kernel
 casts v to f32 first): only the output is rounded to q's dtype.
 
-``flash_attention`` is the wrapper of the CUDA kernel
-``csrc/flash_attention.cu``; ``attention_ref`` is its plain PyTorch version
-(the reference's ``ref.py``), which the wrapper runs for tensors on the CPU
-and the tests hold the kernel to. ``mha`` is the GQA entry point of the LM
-blocks, in the reference's ``ops.py`` layout, and differentiable: the
-forward runs the wrapper, the backward recomputes through
-``attention_ref`` (there is no backward kernel in the reference either).
+``flash_attention`` is the wrapper of the CUDA kernels in
+``csrc/flash_attention.cu``, chosen by q's dtype: bf16 runs the Hopper
+kernel (both products on ``wgmma``, K and V tiles through a TMA ring, P
+carried as three bf16 pieces whose sum is P exactly, so P.V stays the
+reference's f32 product), f32 the FMA kernel. ``split_bf16x3`` is the plain
+version of that split, for the tests. ``attention_ref`` is the kernels'
+plain PyTorch version (the reference's ``ref.py``), which the wrapper runs
+for tensors on the CPU and the tests hold the kernels to. ``mha`` is the
+GQA entry point of the LM blocks, in the reference's ``ops.py`` layout, and
+differentiable: the forward runs the wrapper, the backward recomputes
+through ``attention_ref`` (there is no backward kernel in the reference
+either).
 """
 from __future__ import annotations
 
@@ -46,6 +51,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.to(F32)).to(q.dtype)
+
+
+def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The bf16 kernel's split of an f32 P into three bf16 pieces, hi =
+    bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid), each rounded to
+    nearest even, the differences exact in f32: hi + mid + lo == p for
+    every |p| >= 2^-100. The plain version of the kernel's step, for the
+    tests; ``attention_ref`` keeps P in f32."""
+    p = p.to(F32)
+    hi = p.to(torch.bfloat16)
+    r = p - hi.to(F32)
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.to(F32)).to(torch.bfloat16)
 
 
 def _check(q, k, v, window):

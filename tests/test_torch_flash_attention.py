@@ -19,7 +19,8 @@ from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.flash_attention import mha as ref_mha
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 flash_attention, mha)
+                                                 flash_attention, mha,
+                                                 split_bf16x3)
 
 F32_ATOL = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -142,3 +143,47 @@ def test_plain_is_the_reference_formula_on_unequal_lengths():
     got = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=True,
                         window=16)
     _close(got, want, "float32")
+
+
+def _split_inputs(family: str, n: int = 200_000) -> np.ndarray:
+    rng = np.random.default_rng(19)
+    if family == "log-uniform":  # p over [2^-100, 1]
+        p = np.exp2(rng.uniform(-100.0, 0.0, n))
+    else:  # the softmax's own values: exp(-x), x up to 69
+        p = np.exp(-rng.uniform(0.0, 69.0, n))
+    return np.concatenate([p, [1.0, 2.0 ** -100]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("family", ["log-uniform", "exp"])
+def test_split_bf16x3_sums_to_p_exactly(family):
+    """The bf16 kernel carries P as three bf16 pieces: their sum is P bit
+    for bit wherever P >= 2^-100 (scores within 69 of the row's max)."""
+    p = torch.from_numpy(_split_inputs(family))
+    pieces = split_bf16x3(p)
+    assert all(t.dtype == torch.bfloat16 for t in pieces)
+    total = sum(t.double() for t in pieces)
+    assert torch.equal(total, p.double())
+
+
+def test_split_bf16x3_loses_nothing_of_weight_below_2_pow_100():
+    """exp(-x) for x from 69 to 104: the residue falls into f32's
+    subnormals, and what is lost stays under 1e-40 (against l >= 1)."""
+    x = np.random.default_rng(20).uniform(69.0, 104.0, 100_000)
+    p = torch.from_numpy(np.exp(-x).astype(np.float32))
+    total = sum(t.double() for t in split_bf16x3(p))
+    assert float((total - p.double()).abs().max()) < 1e-40
+
+
+@pytest.mark.parametrize("family", ["log-uniform", "exp"])
+def test_split_bf16x3_products_sum_to_p_v(family):
+    """Each piece times a bf16 v is exact in f32 (8 x 8 significant
+    bits), so the three f32 products summed in f32 give p v up to the two
+    f32 roundings of the sums."""
+    p = torch.from_numpy(_split_inputs(family))
+    v = torch.from_numpy(np.random.default_rng(21).normal(
+        size=p.shape).astype(np.float32)).to(torch.bfloat16).float()
+    lo, mid, hi = (t.float() * v for t in reversed(split_bf16x3(p)))
+    got = (lo + mid) + hi  # f32, the smallest first as the kernel's order
+    want = p.double() * v.double()
+    assert bool(((got.double() - want).abs()
+                 <= 2.0 ** -22 * want.abs()).all())

@@ -396,6 +396,27 @@ def test_flash_attention_kernel_matches_plain(card, bh, s, dh, dtype, causal,
                                                window=window))
 
 
+@pytest.mark.parametrize("bh,s,dh,causal,window", [
+    (2, 4096, 128, True, 0),
+    (8, 384, 256, True, 200),
+    (4, 72, 80, False, 0)], ids=["ring-wraps", "dh256-window", "dh80-ragged"])
+def test_flash_attention_hopper_tiling_matches_plain(card, bh, s, dh, causal,
+                                                     window):
+    """The bf16 kernel's tiling: 32 kv tiles through the ring of K/V
+    stages, a window narrower than the q block at dh 256 (64-row kv
+    tiles), and a ragged sequence at dh 80 (columns padded to 128)."""
+    g = torch.Generator(device=card).manual_seed(bh + s + dh + window)
+    q, k, v = (torch.randn((bh, s, dh), generator=g, device=card).to(
+        torch.bfloat16) for _ in range(3))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert _attention_close(got, attention_ref(q, k, v, causal=causal,
+                                               window=window))
+
+
 def test_flash_attention_kernel_refuses_other_head_dims(card):
     q = torch.zeros((2, 16, 16), device=card)
     with pytest.raises(ValueError, match="head dims"):
