@@ -66,6 +66,8 @@ result.
     python3 chip_smoke.py --profile    # also: a torch.profiler breakdown
     python3 chip_smoke.py --attention  # only flash_attention's checks and
                                        # times (no ok line)
+    python3 chip_smoke.py --qmm        # the same for qmm
+    python3 chip_smoke.py --dcor       # the same for pairwise_dists
 """
 from __future__ import annotations
 
@@ -187,6 +189,65 @@ def cuda_ms(fn, iters: int) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` with the 50 MB L2 flushed before each
+    call: 64 MB written between calls, CUDA events around each call alone,
+    all queued while the card was held busy."""
+    flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(2 * 10**7)  # cycles, ~10 ms at ~2 GHz
+    for start, end in evs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+
+# cudaGraphNodeType values (CUDA runtime API) and their names
+GRAPH_NODE_TYPES = {0: "KERNEL", 1: "MEMCPY", 2: "MEMSET", 3: "HOST",
+                    4: "GRAPH", 5: "EMPTY", 6: "WAIT_EVENT",
+                    7: "EVENT_RECORD", 10: "MEM_ALLOC", 11: "MEM_FREE"}
+
+
+def device_ops(fn) -> list:
+    """The operations one call of ``fn`` puts on the card (kernels,
+    memsets, copies, ...): the node types of a CUDA graph that captures the
+    call, on a side stream after a warm-up call there (so that a wrapper's
+    per-stream workspaces already exist), read with the CUDA runtime's
+    cudaGraphGetNodes and cudaGraphNodeGetType."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        fn()
+    torch.cuda.synchronize()
+    rt = ctypes.CDLL("libcudart.so.12")  # the runtime torch has loaded
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType")
+        types.append(GRAPH_NODE_TYPES.get(kind.value, str(kind.value)))
+    del graph
+    return types
 
 
 def bound(nbytes: float, flops: float, int8_ops: float = 0.0,
@@ -552,12 +613,155 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     ]
 
 
+def qmm_rows(dev, mm_shapes: Counter, g) -> list:
+    """qmm at every (m, n, k) of one int8 run, on seeded random codes: bit-
+    equal to its plain version (checked), the route its wrapper picks, its
+    time (and, at the fc's K, its time with the L2 flushed before each
+    call) beside its bound, the plain version's and cuBLAS int8's."""
+    from repro_torch.kernels.qmm import card_fit, plan, qmm, qmm_ref
+
+    def codes(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    fit = card_fit(dev.index or 0)
+    rows = []
+    for (m, n, k), count in sorted(mm_shapes.items()):
+        xq, wq = codes(m, k), codes(n, k)
+        sx = torch.rand((m, 1), generator=g, device=dev) + 0.01
+        sw = torch.rand((n, 1), generator=g, device=dev) + 0.01
+        got = qmm(xq, sx, wq, sw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, qmm_ref(xq, sx, wq, sw)),
+              f"qmm bit-equal to plain at {(m, n, k)} on random codes")
+        route, per, splits, cluster = plan(m, n, k, fit)
+        ops = device_ops(lambda: qmm(xq, sx, wq, sw))
+        check(ops == ["KERNEL"], f"qmm one kernel and no other device op a "
+              f"call at {(m, n, k)} ({ops})")
+        ms, host = cuda_ms(lambda: qmm(xq, sx, wq, sw), 50)
+        pms, phost = cuda_ms(lambda: qmm_ref(xq, sx, wq, sw), 20)
+        # yardstick only (the port never calls it): cuBLAS int8 -> int32
+        # through torch._int_mm, K and N zero-padded to multiples of 8
+        # beforehand, then the two scale multiplies
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        xp = torch.zeros((m, kp), dtype=torch.int8, device=dev)
+        xp[:, :k] = xq
+        wp = torch.zeros((np_, kp), dtype=torch.int8, device=dev)
+        wp[:n, :k] = wq
+
+        def lib_mm():
+            return (torch._int_mm(xp, wp.t())[:, :n].to(torch.float32)
+                    * sx * sw.T)
+
+        lib_eq = torch.equal(lib_mm(), qmm_ref(xq, sx, wq, sw))
+        lms, lhost = cuda_ms(lib_mm, 50)
+        b_ms, by = bound(m * k + n * k + 4 * (m + n) + 4 * m * n,
+                         2 * m * n, 2 * m * n * k)
+        # clusters of this size the card runs at once (cudaOccupancy-
+        # MaxActiveClusters), which bounds the plan's wave
+        row = {"shape": [m, n, k], "count": count, "route": route,
+               "k_tiles_a_split": per, "splits": splits, "cluster": cluster,
+               "clusters_at_once": fit(cluster) if route == "wgmma" else None,
+               "ms": ms,
+               "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+               "library_ms": lms, "host_ms": host, "plain_host_ms": phost,
+               "library_host_ms": lhost, "library_bit_equal": lib_eq}
+        if k > 4096:  # the fc: its 38 MB of operands fit in the L2
+            row["cold_l2_ms"] = cold_ms(lambda: qmm(xq, sx, wq, sw), 20)
+            row["library_cold_l2_ms"] = cold_ms(lib_mm, 20)
+        rows.append(row)
+        print(f"qmm {(m, n, k)} x{count} route {route} ({splits} splits): "
+              f"{ms:.5f} ms, cold L2 {row.get('cold_l2_ms', 'n/a')}; bound "
+              f"{b_ms:.5f} ({by}); torch._int_mm {lms:.5f}")
+        del xq, wq, xp, wp
+    return rows
+
+
+def fc_pass_rows(e) -> int:
+    """Rows a pass of the estimator's CNN trunk (its CNN_CHUNK_BYTES cap)."""
+    from repro_torch.estimator.model import CNN_CHUNK_BYTES
+    return max(1, CNN_CHUNK_BYTES // (4 * e.cnn_ch[0] * e.n_sc * e.n_sym))
+
+
 def pairwise_work(n: int, d: int) -> tuple[int, int]:
     """(bytes, flops) of one pairwise-distance call: x read once and the
     (n, n) distances written once (f32); the Gram x x^T, which is
     symmetric, so one multiply-add for each of its n (n + 1) / 2 distinct
     pairs and d columns."""
     return 4 * (n * d + n * n), n * (n + 1) * d
+
+
+def pairwise_checks(dev, g) -> tuple[float, float]:
+    """pairwise_dists against its plain version at PAIRWISE_CHECKS, on
+    non-negative rows as after a ReLU: diagonal exactly 0, symmetric and
+    repeatable bit for bit, squared distances within DIST_RTOL; one device
+    op a call. Returns (max |err|, max relative squared-distance error)."""
+    from repro_torch.kernels.dcor import pairwise_dists, pairwise_dists_ref
+    dist_err, dist_rel = 0.0, 0.0
+    for rows, d in PAIRWISE_CHECKS:
+        x = torch.rand((rows, d), generator=g, device=dev)
+        got = pairwise_dists(x)
+        again = pairwise_dists(x)
+        torch.cuda.synchronize()
+        want = pairwise_dists_ref(x)
+        check(torch.equal(torch.diagonal(got), torch.zeros(rows, device=dev)),
+              f"pairwise_dists diagonal exactly 0 at {(rows, d)}")
+        check(torch.equal(got, got.T) and torch.equal(got, again),
+              f"pairwise_dists symmetric and repeatable at {(rows, d)}")
+        sq = (x.double() ** 2).sum(1)
+        rel = float(((got.double() ** 2 - want.double() ** 2).abs()
+                     / (sq[:, None] + sq[None, :])).max())
+        check(rel <= DIST_RTOL, f"pairwise_dists squared distances within "
+              f"{DIST_RTOL} of the rows' squared norms at {(rows, d)} "
+              f"({rel:.3g})")
+        ops = device_ops(lambda: pairwise_dists(x))
+        check(ops == ["KERNEL"], f"pairwise_dists one kernel and no other "
+              f"device op a call at {(rows, d)} ({ops})")
+        dist_rel = max(dist_rel, rel)
+        dist_err = max(dist_err, float((got - want).abs().max()))
+        del x, got, again, want
+    print(f"pairwise_dists vs plain at {PAIRWISE_CHECKS}: diagonal 0, "
+          f"symmetric and repeatable bit for bit, one launch a call; max "
+          f"|d2 err| / (|x_i|^2 + |x_j|^2) {dist_rel:.3g} (bound "
+          f"{DIST_RTOL}), max |err| {dist_err:.3g}")
+    return dist_err, dist_rel
+
+
+def pairwise_rows(dev, g) -> list:
+    """pairwise_dists at every (n, d) of one profile run (48 images: the
+    input, 43 times, and the 43 activations), each timed alone beside its
+    bound, the plain version's and ``torch.cdist``'s time."""
+    from repro_torch.kernels.dcor import (card_fit, pairwise_dists,
+                                          pairwise_dists_ref, plan)
+    from repro_torch.models.vgg import FULL, _shapes
+    n = SPLIT_IMAGES
+    fit = card_fit(dev.index or 0)
+    widths = Counter([int(np.prod(s)) for s in _shapes(FULL)])
+    widths[FULL.image_size ** 2 * 3] += len(_shapes(FULL))  # the input
+    rows = []
+    for d, count in sorted(widths.items()):
+        x = torch.rand((n, d), generator=g, device=dev)
+        ms, host = cuda_ms(lambda: pairwise_dists(x), 20)
+        pms, phost = cuda_ms(lambda: pairwise_dists_ref(x), 10)
+        # yardstick only (the port never calls it): one cdist call, whose
+        # diagonal is not pinned to 0
+        lms, lhost = cuda_ms(lambda: torch.cdist(
+            x, x, compute_mode="use_mm_for_euclid_dist"), 10)
+        b_ms, by = bound(*pairwise_work(n, d))
+        route, tiles, chunk, splits, cluster = plan(n, d, fit)
+        rows.append({"shape": [n, d], "count": count, "route": route,
+                     "chunk": chunk, "splits": splits, "cluster": cluster,
+                     "clusters_at_once": (fit(cluster, tiles > 1)
+                                          if route == "splits" else None),
+                     "ms": ms,
+                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": lms, "host_ms": host,
+                     "plain_host_ms": phost, "library_host_ms": lhost})
+        print(f"pairwise_dists {(n, d)} x{count} route {route} ({splits} "
+              f"splits, clusters of {cluster}): {ms:.5f} ms, bound "
+              f"{b_ms:.5f} ({by}), {b_ms / ms:.0%} of it; host {host:.4f}")
+        del x
+    return rows
 
 
 def split_path(dev, argv) -> tuple[dict, dict]:
@@ -579,8 +783,7 @@ def split_path(dev, argv) -> tuple[dict, dict]:
     from repro_torch.core.splitting import (vgg_head, vgg_split_infer,
                                             vgg_tail)
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.dcor import (dcor_kernel, pairwise_dists,
-                                          pairwise_dists_ref)
+    from repro_torch.kernels.dcor import dcor_kernel
     from repro_torch.kernels.quant import quantize, quantize_ref
     from repro_torch.models.vgg import FULL, _shapes, forward, init_vgg, \
         layout, vgg_split_profile
@@ -596,33 +799,8 @@ def split_path(dev, argv) -> tuple[dict, dict]:
     print(f"split setup: VGG16 FULL (224 px, 138 M parameters) seeded, {n} "
           f"textured images: {time.perf_counter() - t0:.2f} s")
 
-    # the kernel against its plain version at the path's shapes, on
-    # non-negative rows as after a ReLU
     g = torch.Generator(device=dev).manual_seed(SEED)
-    dist_err, dist_rel = 0.0, 0.0
-    for rows, d in PAIRWISE_CHECKS:
-        x = torch.rand((rows, d), generator=g, device=dev)
-        got = pairwise_dists(x)
-        again = pairwise_dists(x)
-        torch.cuda.synchronize()
-        want = pairwise_dists_ref(x)
-        check(torch.equal(torch.diagonal(got), torch.zeros(rows, device=dev)),
-              f"pairwise_dists diagonal exactly 0 at {(rows, d)}")
-        check(torch.equal(got, got.T) and torch.equal(got, again),
-              f"pairwise_dists symmetric and repeatable at {(rows, d)}")
-        sq = (x.double() ** 2).sum(1)
-        rel = float(((got.double() ** 2 - want.double() ** 2).abs()
-                     / (sq[:, None] + sq[None, :])).max())
-        check(rel <= DIST_RTOL, f"pairwise_dists squared distances within "
-              f"{DIST_RTOL} of the rows' squared norms at {(rows, d)} "
-              f"({rel:.3g})")
-        dist_rel = max(dist_rel, rel)
-        dist_err = max(dist_err, float((got - want).abs().max()))
-        del x, got, again, want
-    print(f"pairwise_dists vs plain at {PAIRWISE_CHECKS}: diagonal 0, "
-          f"symmetric and repeatable bit for bit; max |d2 err| / (|x_i|^2 + "
-          f"|x_j|^2) {dist_rel:.3g} (bound {DIST_RTOL}), max |err| "
-          f"{dist_err:.3g}")
+    dist_err, dist_rel = pairwise_checks(dev, g)
 
     # the path
     def run():
@@ -805,24 +983,7 @@ def split_path(dev, argv) -> tuple[dict, dict]:
         "head_tail_vs_full": head_err,
         "pairwise_dists_rel_d2": dist_rel}}))
 
-    # the kernel at every shape of one profile run, each timed alone
-    widths = Counter([int(np.prod(s)) for s in _shapes(FULL)])
-    widths[int(np.prod(xs.shape[1:]))] += len(_shapes(FULL))  # the input
-    rows = []
-    for d, count in sorted(widths.items()):
-        x = torch.rand((n, d), generator=g, device=dev)
-        ms, host = cuda_ms(lambda: pairwise_dists(x), 20)
-        pms, phost = cuda_ms(lambda: pairwise_dists_ref(x), 10)
-        # yardstick only (the port never calls it): one cdist call, whose
-        # diagonal is not pinned to 0
-        lms, lhost = cuda_ms(lambda: torch.cdist(
-            x, x, compute_mode="use_mm_for_euclid_dist"), 10)
-        b_ms, by = bound(*pairwise_work(n, d))
-        rows.append({"shape": [n, d], "count": count, "ms": ms,
-                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": lms, "host_ms": host,
-                     "plain_host_ms": phost, "library_host_ms": lhost})
-        del x
+    rows = pairwise_rows(dev, g)
     tot = shape_totals(rows)
     largest = max(rows, key=lambda r: r["shape"][1])
 
@@ -1261,8 +1422,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.core.energy import EDGE_A40X2, UE_VM_2CORE
     from repro_torch.core.objective import Constraints, Weights
     from repro_torch.core.pso import TP_CLIP_MBPS, pso_vectorized
-    from repro_torch.estimator.model import (CNN_CHUNK_BYTES,
-                                             EstimatorConfig, conv_trunk,
+    from repro_torch.estimator.model import (EstimatorConfig, conv_trunk,
                                              full_f32, init_estimator)
     from repro_torch.estimator.serve import quantize_estimator
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
@@ -1301,6 +1461,22 @@ def main(argv: list[str]) -> int:
         rows, timing = attention_kernel(dev)
         print(json.dumps({"flash_attention": dict(timing, card=smi,
                                                   checks=rows)}))
+        return 0
+    if "--qmm" in argv:  # qmm's checks and times at the int8 path's shapes
+        e = EstimatorConfig()
+        _, mm_shapes = int8_shapes(e, N_UES * T_PERIODS, fc_pass_rows(e))
+        rows = qmm_rows(dev, mm_shapes,
+                        torch.Generator(device=dev).manual_seed(SEED))
+        print(json.dumps({"qmm": dict(shape_totals(rows), card=smi,
+                                      shapes=rows)}))
+        return 0
+    if "--dcor" in argv:  # pairwise_dists' checks and profile-run times
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        err, rel = pairwise_checks(dev, g)
+        rows = pairwise_rows(dev, g)
+        print(json.dumps({"pairwise_dists": dict(
+            shape_totals(rows), card=smi, max_abs_err=err,
+            max_rel_d2_err=rel, shapes=rows)}))
         return 0
 
     # the main path's inputs: a mixed S0-S3 episode at the paper's width,
@@ -1377,8 +1553,7 @@ def main(argv: list[str]) -> int:
           f"lstm_scan_q within {Q_SCAN_ATOL} of plain, at most "
           f"{Q_SCAN_ROWS_OFF:.0%} of rows beyond 1e-5 ({lstm_q_err:.3g}, "
           f"{lstm_q_rows} rows)")
-    pass_rows = max(1, CNN_CHUNK_BYTES // (4 * e.cnn_ch[0] * e.n_sc
-                                           * e.n_sym))
+    pass_rows = fc_pass_rows(e)
     iq_pass = torch.from_numpy(np.asarray(
         ep.iq[:, :T_PERIODS].reshape(-1, *ep.iq.shape[2:])[:pass_rows],
         np.float32)).to(dev)
@@ -1564,11 +1739,6 @@ def main(argv: list[str]) -> int:
 
     # the int8 kernels at every shape of one int8 run, each timed alone
     g = torch.Generator(device=dev).manual_seed(SEED)
-
-    def codes(*shape):
-        return torch.randint(-128, 128, shape, generator=g, device=dev,
-                             dtype=torch.int8)
-
     quant_rows = []
     for (n, d), count in sorted(quant_shapes.items()):
         x = torch.randn((n, d), generator=g, device=dev)
@@ -1580,35 +1750,7 @@ def main(argv: list[str]) -> int:
                            "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
                            "library_ms": None, "host_ms": host,
                            "plain_host_ms": phost})
-    mm_rows = []
-    for (m, n, k), count in sorted(mm_shapes.items()):
-        xq, wq = codes(m, k), codes(n, k)
-        sx = torch.rand((m, 1), generator=g, device=dev) + 0.01
-        sw = torch.rand((n, 1), generator=g, device=dev) + 0.01
-        ms, host = cuda_ms(lambda: qmm(xq, sx, wq, sw), 50)
-        pms, phost = cuda_ms(lambda: qmm_ref(xq, sx, wq, sw), 20)
-        # yardstick only (the port never calls it): cuBLAS int8 -> int32
-        # through torch._int_mm, K and N zero-padded to multiples of 8
-        # beforehand, then the two scale multiplies
-        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
-        xp = torch.zeros((m, kp), dtype=torch.int8, device=dev)
-        xp[:, :k] = xq
-        wp = torch.zeros((np_, kp), dtype=torch.int8, device=dev)
-        wp[:n, :k] = wq
-
-        def lib_mm():
-            return (torch._int_mm(xp, wp.t())[:, :n].to(torch.float32)
-                    * sx * sw.T)
-
-        lib_eq = torch.equal(lib_mm(), qmm_ref(xq, sx, wq, sw))
-        lms, lhost = cuda_ms(lib_mm, 50)
-        b_ms, by = bound(m * k + n * k + 4 * (m + n) + 4 * m * n,
-                         2 * m * n, 2 * m * n * k)
-        mm_rows.append({"shape": [m, n, k], "count": count, "ms": ms,
-                        "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
-                        "library_ms": lms, "host_ms": host,
-                        "plain_host_ms": phost, "library_host_ms": lhost,
-                        "library_bit_equal": lib_eq})
+    mm_rows = qmm_rows(dev, mm_shapes, g)
     lq_ms, lq_host = cuda_ms(
         lambda: lstm_scan_q(rows, *lq["wx"], *lq["wh"], lq["b"]), 50)
     lq_plain, lq_plain_host = cuda_ms(  # about 1,350 launches a call

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into one shared
 library with a plain C interface, on first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout. The library's
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one loads the existing library. The sources compile
+name carries a hash of the sources, their ``csrc/*.cuh`` headers and the
+flags, so an edited source builds anew and an unchanged one loads the
+existing library. The sources compile
 in parallel, one ``nvcc`` each (``build_log`` holds each one's output and
 seconds), then link once.
 
@@ -13,11 +14,14 @@ the featurize kernel is pinned bit-equal to the true-division reference.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
-that it went through the kernels.
+that it went through the kernels. ``max_clusters``, ``device_stream`` and
+``scratch`` are what the wrappers ask of a card before a launch, cheaply.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +30,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -44,8 +50,12 @@ _SIGNATURES = {
     # (x, q, scale, n, d, qmax, f32(1 / qmax), stream); x f32 or bf16
     "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
     "repro_quantize_rows_bf16_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
-    # (xq, sx, wq, sw, out, part, m, n, k, splits, stream)
-    "repro_qmm_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (xq, sx, wq, sw, out, scratch, m, n, k, per_split, splits, cluster,
+    #  stream)
+    "repro_qmm_s8_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P],
+    # (xq, sx, wq, sw, out, m, n, k, stream)
+    "repro_qmm_s8_dp4a": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (x, wxq, wxs, whq, whs, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_q_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _P],
@@ -55,8 +65,13 @@ _SIGNATURES = {
     #  stream)
     "repro_ssd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P],
-    # (x, work, out, n, d, tile, chunk, splits, stream)
-    "repro_pairwise_dists_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (x, work, out, tickets, n, d, chunk, splits, cluster, stream) and
+    # (x, out, n, d, stream)
+    "repro_pairwise_dists_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_pairwise_dists_tiles_f32": [_P, _P, _I, _I, _P],
+    # (cluster) and (cluster, two_tiles): clusters that run at once
+    "repro_qmm_max_clusters": [_I],
+    "repro_pairwise_dists_max_clusters": [_I, _I],
     # (q, k, v, o, bh, sq, sk, dh, causal, window, scale, stream); bf16 or
     # f32
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -72,6 +87,7 @@ LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
 _lock = threading.Lock()
 _lib = None
 build_log = ""  # nvcc/ptxas output of the last build in this process
+_scratch = {}  # (card, stream, dtype, zeroed) -> buffer, see scratch
 
 
 def reset_launches() -> None:
@@ -91,7 +107,7 @@ def _build() -> Path:
     global build_log
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     tag = h.hexdigest()[:16]
@@ -151,3 +167,43 @@ def check_launch(rc: int, name: str) -> None:
         msg = library().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(entry: str, index: int, *args: int) -> int:
+    """How many clusters the card ``index`` runs at once for the C query
+    ``entry`` (``repro_qmm_max_clusters``, ``repro_pairwise_dists_max_
+    clusters``) at ``args`` (asked once)."""
+    with torch.cuda.device(index):
+        num = getattr(library(), entry)(*args)
+    if num < 0:
+        check_launch(-num, entry)
+    return num
+
+
+def device_stream(index: int):
+    """(context, stream) for a launch on card ``index``: a context that
+    makes the card current (nothing where it already is) and the card's
+    current stream as the integer the C entry points take."""
+    ctx = (contextlib.nullcontext() if torch.cuda.current_device() == index
+           else torch.cuda.device(index))
+    return ctx, torch._C._cuda_getCurrentRawStream(index)
+
+
+def scratch(index: int, stream: int, n: int, dtype=torch.int32,
+            zeroed: bool = True):
+    """At least ``n`` elements of ``dtype`` on card ``index`` for the
+    kernels of ``stream``, which runs them in order: one buffer a (card,
+    stream, dtype, zeroed), reused by every launch.
+
+    ``zeroed``: allocated with zeros, which the kernels that take it (qmm's
+    split sums, both kernels' tickets) leave zero when they end: the block
+    that reads a value last resets it, so a launch needs no memset."""
+    key = (index, stream, dtype, zeroed)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < n:
+        make = torch.zeros if zeroed else torch.empty
+        buf = make(max(n, 4096), dtype=dtype,
+                   device=torch.device("cuda", index))
+        _scratch[key] = buf
+    return buf

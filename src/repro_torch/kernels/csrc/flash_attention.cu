@@ -59,11 +59,10 @@
 // from. Overlapping a warpgroup's own softmax with its products (a second
 // S in flight) needs more than 240 registers beside P's 96 of pieces:
 // later work, with the measurements in PERF.md.
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -74,11 +73,11 @@ constexpr float kMasked = -1e30f;  // the reference's mask value
 // ---------------------------------------------------------------------------
 namespace hopper {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 128;  // q rows a block: two consumer warpgroups of 64
 constexpr int kThreads = 384;  // a producer warpgroup and two consumers
-constexpr int kSmemMax = 232448;  // a block's shared memory on an H100
 
 template <int DH>
 struct Cfg {
@@ -105,77 +104,6 @@ struct Cfg {
   static_assert(smem <= kSmemMax, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, spins = 0;
-  do {
-    // a phase that never completes (a fault in the ring's bookkeeping)
-    // ends the kernel with a launch error rather than hanging the card
-    if (++spins == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a (64 x rows x 1) box at (c0, c1, c2) of a 3-D tensor map into shared
-// memory, completing on the barrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until every committed group of this warpgroup is done
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 // e^x as 2^(x log2 e) on the SFU (ex2.approx: 2 ulp; results below 2^-126
 // flush to 0): exp(-inf) = 0, and exp(-1e30 - m) = 0 as the reference's
 __device__ __forceinline__ float exp_approx(float x) {
@@ -192,22 +120,6 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define WG_R32                                             \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
-  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_R64                                                        \
-  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
-         "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
-         "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_R128                                                       \
-  WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, " \
-         "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
-         "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "   \
-         "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, " \
-         "%107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
-         "%116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
-         "%125, %126, %127"
 #define WG_F8(i)                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -594,32 +506,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   acc[4 * j + 2 * i + 1] / den);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, found through the CUDA runtime (no -lcuda link)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // a 3-D map over a contiguous (bh, s, dh) bf16 tensor, read in boxes of 64

@@ -11,6 +11,8 @@ activation rows with the ``quantize`` kernel, then runs ``qmm``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -20,13 +22,12 @@ F32 = torch.float32
 I8 = torch.int8
 I32 = torch.int32
 
-# Split-K for the kernel: aim at this many blocks in flight (two an SM),
-# and give every split at least KSPLIT_MIN_BYTES of the contraction. Its
-# TILE x TILE output tiles (kTile in qmm.cu; a mismatch costs speed, not
-# correctness) alone fill the card only when M and N are large.
-TARGET_BLOCKS = 264
-KSPLIT_MIN_BYTES = 512
-TILE = 64
+# the wgmma route (csrc/qmm.cu): TILE x TILE output tiles, K in whole
+# K_TILE-byte tiles (BM, BN, BK there), up to CLUSTER splits of a tile in
+# a cluster (the portable most)
+TILE = 128
+K_TILE = 128
+CLUSTER = 8
 
 
 def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,11 +66,46 @@ def _check(xq, sx, wq, sw):
         raise ValueError("the contraction must hold at least one value")
 
 
-def k_splits(m: int, n: int, k: int) -> int:
-    """How many slices of K the kernel sums apart (int32, exact)."""
+def plan(m: int, n: int, k: int, fit,
+         aligned: bool = True) -> tuple[str, int, int, int]:
+    """(route, k tiles a split, splits, cluster) of a launch, from the
+    shape, the operands' alignment and ``fit(c)``, how many clusters of c
+    blocks of the wgmma route the card runs at once.
+
+    ``"wgmma"``, the int8 tensor cores fed by TMA, where K is a multiple of
+    16 and both bases are 16-byte aligned, as TMA requires: the CNN fc.
+    Its TILE x TILE output tiles times ranges of whole K_TILE-byte k tiles
+    run in one wave, the splits of a tile in clusters of ``cluster`` (the
+    largest of CLUSTER, 4, 2 that gives every cluster's split a k tile)
+    that add their int32 sums in shared memory; several clusters add
+    theirs exactly with integer atomics. Only the last cluster's trailing
+    splits may hold no k tile. ``"dp4a"``, on the CUDA cores, takes every
+    other shape (the 124-deep products of the LSTM projection and the
+    head): one block a 64 x 64 tile over all of K, so (0, 1, 1)."""
+    if k % 16 or not aligned:
+        return "dp4a", 0, 1, 1
     tiles = -(-m // TILE) * -(-n // TILE)
-    most = max(1, -(-k // KSPLIT_MIN_BYTES))
-    return max(1, min(most, -(-TARGET_BLOCKS // tiles)))
+    k_tiles = -(-k // K_TILE)
+    splits = cluster = 1
+    for c in (CLUSTER, 4, 2):
+        s = min(fit(c) // tiles, k_tiles // c) * c
+        if s >= c:
+            splits, cluster = s, c
+            break
+    per = -(-k_tiles // splits)
+    return "wgmma", per, -(-k_tiles // (per * cluster)) * cluster, cluster
+
+
+def card_fit(index: int):
+    """``plan``'s fit for card ``index``: the clusters of the wgmma route it
+    runs at once, asked of the card once."""
+    return functools.partial(_build.max_clusters, "repro_qmm_max_clusters",
+                             index)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(m: int, n: int, k: int, index: int, aligned: bool):
+    return plan(m, n, k, card_fit(index), aligned)
 
 
 def qmm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
@@ -77,8 +113,8 @@ def qmm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     """The qmm kernel: contiguous int8 xq (M, K), f32 sx (M, 1), int8 wq
     (N, K), f32 sw (N, 1) -> (M, N) f32.
 
-    Tensors on the CPU run ``qmm_ref``; on a card the CUDA kernel runs,
-    or this raises."""
+    Tensors on the CPU run ``qmm_ref``; on a card the CUDA kernel runs on
+    the route ``plan`` picks, or this raises."""
     _check(xq, sx, wq, sw)
     if xq.device.type == "cpu":
         return qmm_ref(xq, sx, wq, sw)
@@ -88,16 +124,24 @@ def qmm(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     out = torch.empty((m, n), dtype=F32, device=xq.device)
     if m == 0 or n == 0:
         return out
-    splits = k_splits(m, n, k)
-    # int32 partial sums of each K slice, summed by the kernel's epilogue
-    part = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=I32,
-                       device=xq.device)
+    index = xq.device.index
+    aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    route, per, splits, cluster = _card_plan(m, n, k, index, aligned)
     lib = _build.library()
-    with torch.cuda.device(xq.device):
-        rc = lib.repro_qmm_s8(
-            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), part.data_ptr(), m, n, k, splits,
-            torch.cuda.current_stream().cuda_stream)
+    ptrs = (xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+            out.data_ptr())
+    ctx, stream = _build.device_stream(index)
+    with ctx:
+        if route == "wgmma":
+            # the tickets (cluster a tile), then the (m, n) int32 sums of
+            # the clusters
+            tiles = -(-m // TILE) * -(-n // TILE)
+            scratch = (_build.scratch(index, stream, tiles * cluster + m * n)
+                       .data_ptr() if splits > cluster else None)
+            rc = lib.repro_qmm_s8_wgmma(*ptrs, scratch, m, n, k, per, splits,
+                                        cluster, stream)
+        else:
+            rc = lib.repro_qmm_s8_dp4a(*ptrs, m, n, k, stream)
     _build.check_launch(rc, "qmm")
     _build.LAUNCHES["qmm"] += 1
     return out

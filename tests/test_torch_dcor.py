@@ -4,6 +4,8 @@ kernel (interpret mode) at the reference's shapes, dCor and
 ``dcor_kernel`` against the reference's, the isometry invariance, and
 ``layer_privacy_profile`` on REDUCED VGG16 activations. The same numpy
 inputs go to both packages."""
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +17,10 @@ from repro.kernels.dcor import dcor_kernel as ref_dcor_kernel
 from repro.kernels.dcor import pairwise_dists as ref_pairwise_kernel
 from repro.models import vgg as vgg_ref
 from repro_torch.core import privacy
-from repro_torch.kernels.dcor import (BLOCKS_PER_SM, SLAB, dcor_kernel,
+from repro_torch.kernels.dcor import (CLUSTER, MIN_SLABS, ROWS, SHORT_D,
+                                      SLAB, TILE_GROUP, dcor_kernel,
                                       pairwise_dists, pairwise_dists_ref,
-                                      plan)
+                                      plan, register_tiles, tile_pairs)
 
 
 def _x(n, d, seed):
@@ -58,6 +61,12 @@ def test_wrapper_rejects_malformed_input(bad):
         pairwise_dists(x)
 
 
+def _fit(sms):
+    """Clusters that run at once on a card of ``sms`` SMs packed perfectly:
+    two blocks an SM at one tile pair, one at more."""
+    return lambda c, two_tiles: sms * (1 if two_tiles else 2) // c
+
+
 # the launch plan the CUDA entry point checks: column ranges that cover d
 # exactly once, each a whole number of staged slabs
 @pytest.mark.parametrize("n,d", [(48, 3211264), (48, 150528), (48, 1000),
@@ -65,15 +74,63 @@ def test_wrapper_rejects_malformed_input(bad):
                                  (129, 77), (4096, 10), (48, 4096)])
 @pytest.mark.parametrize("sms", [132, 1])
 def test_launch_plan_covers_d(n, d, sms):
-    tile, chunk, splits = plan(n, d, sms)
-    assert tile % 16 == 0 and min(n, 128) <= tile <= 128 and tile < n + 16
-    assert chunk % SLAB == 0 and chunk >= SLAB
-    assert (splits - 1) * chunk < d <= splits * chunk
-    tiles = -(-n // tile)
-    full = BLOCKS_PER_SM * sms
-    if tiles ** 2 < full and d >= full * SLAB:
-        # about BLOCKS_PER_SM blocks an SM
-        assert full - sms < tiles ** 2 * splits <= full
+    fit = _fit(sms)
+    route, tiles, chunk, splits, cluster = plan(n, d, fit)
+    assert tiles == -(-n // ROWS)
+    if d <= SHORT_D:  # one block a register tile, over all of d
+        assert (route, chunk, splits, cluster) == ("tiles", d, 1, 1)
+        return
+    assert route == "splits"
+    assert chunk % SLAB == 0 and chunk // SLAB >= MIN_SLABS
+    # every column in exactly one split's range; only the last cluster's
+    # trailing splits may hold none
+    assert splits % cluster == 0 and 1 <= cluster <= CLUSTER
+    assert (splits - cluster) * chunk < d <= splits * chunk
+    pairs = tiles * (tiles + 1) // 2
+    if cluster > 1:  # clusters of the whole grid in one wave
+        assert pairs * splits // cluster <= fit(cluster, tiles > 1)
+    if pairs == 1 and d >= MIN_SLABS * SLAB * 2 * sms and sms > 1:
+        assert splits >= 2 * sms - CLUSTER  # two blocks an SM
+
+
+def test_launch_plan_prefers_large_clusters():
+    # an H100 runs 30 clusters of 8 two-block SMs at once (240 blocks),
+    # 62 of 4, 132 of 2: 240 is within 90% of 264, so clusters of 8
+    h100 = {8: 30, 4: 62, 2: 132}.get
+    assert plan(48, 3211264, lambda c, t: h100(c)) == \
+        ("splits", 1, 13440, 240, 8)
+    # a card whose clusters of 8 would hold a third of the blocks
+    sparse = {8: 10, 4: 62, 2: 132}.get
+    assert plan(48, 3211264, lambda c, t: sparse(c))[3:] == (248, 4)
+    # the profile's input (d 150,528): 224 splits of 7 slabs
+    assert plan(48, 150528, lambda c, t: h100(c)) == \
+        ("splits", 1, 672, 224, 8)
+    # short rows take the tile route
+    assert plan(48, 4096, lambda c, t: h100(c))[0] == "tiles"
+
+
+@pytest.mark.parametrize("group", [8, TILE_GROUP])
+@pytest.mark.parametrize("n", [1, 2, 33, 47, 48, 49, 129, 200])
+def test_tiles_cover_every_pair_once(n, group):
+    """The tile pairs and their register tiles (the split route's threads,
+    the tile route's blocks) own each pair i <= j of rows exactly once."""
+    k = ROWS // group
+    owned = Counter()
+    for ti, tj in tile_pairs(plan(n, 10**6, _fit(132))[1]):
+        for a, b in register_tiles(ti == tj, group):
+            for ii in range(group):
+                for jj in range(group):
+                    if ti == tj and a == b and ii > jj:
+                        continue
+                    i = ti * ROWS + a + k * ii
+                    j = tj * ROWS + b + k * jj
+                    if i < n and j < n:
+                        owned[min(i, j), max(i, j)] += 1
+    assert owned == Counter({(i, j): 1 for i in range(n)
+                             for j in range(i, n)})
+    # the split route: 21 x 12 and 36 x 7 column groups, 252 threads
+    assert len(register_tiles(True)) * 12 == 252
+    assert len(register_tiles(False)) * 7 == 252
 
 
 def _dcor_pair():

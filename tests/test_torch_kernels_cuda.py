@@ -21,7 +21,9 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
                                       lstm_scan_q_ref, lstm_scan_ref)
-from repro_torch.kernels.qmm import qmm, qmm_ref, quantize_weight
+from repro_torch.kernels.qmm import (K_TILE, card_fit, qmm, qmm_ref,
+                                     quantize_weight)
+from repro_torch.kernels.qmm import plan as qmm_plan
 from repro_torch.kernels.quant import quantize, quantize_ref
 from repro_torch.kernels.segsum import (segment_reduce_batched,
                                         segment_reduce_ref)
@@ -133,17 +135,19 @@ def test_pairwise_dists_kernel_matches_plain(card, n, d):
 
 def test_pairwise_dists_kernel_odd_alignment(card):
     """A row pitch that is not a multiple of four floats, and a base that
-    is not 16-byte aligned, take the scalar loads."""
+    is not 16-byte aligned: the split route's scalar loads (d 10,001) and
+    the tile route (d 1,001, which loads floats alone)."""
     rng = np.random.default_rng(5)
-    base = torch.from_numpy(rng.normal(size=(40 * 1001 + 1,))
-                            .astype(np.float32)).to(card)
-    x = base[1:].view(40, 1001)
-    got = pairwise_dists(x)
-    torch.cuda.synchronize()
-    want = pairwise_dists_ref(x)
-    sq = (x.double() ** 2).sum(1)
-    err = (got.double() ** 2 - want.double() ** 2).abs()
-    assert bool((err <= 1e-4 * (sq[:, None] + sq[None, :])).all())
+    for d in (1001, 10001):
+        base = torch.from_numpy(rng.normal(size=(40 * d + 1,))
+                                .astype(np.float32)).to(card)
+        x = base[1:].view(40, d)
+        got = pairwise_dists(x)
+        torch.cuda.synchronize()
+        want = pairwise_dists_ref(x)
+        sq = (x.double() ** 2).sum(1)
+        err = (got.double() ** 2 - want.double() ** 2).abs()
+        assert bool((err <= 1e-4 * (sq[:, None] + sq[None, :])).all())
 
 
 def test_split_slice_on_card_matches_cpu(card):
@@ -187,6 +191,80 @@ def test_qmm_kernel_bit_equal(card, m, n, k):
     got = qmm(xq, sx, wq, sw)
     torch.cuda.synchronize()
     assert torch.equal(got, qmm_ref(xq, sx, wq, sw))
+
+
+def _qmm_operands(card, m, n, k, seed, fill=None):
+    g = torch.Generator().manual_seed(seed)
+
+    def codes(*shape):
+        if fill is not None:
+            return torch.full(shape, fill, dtype=torch.int8, device=card)
+        return torch.randint(-128, 128, shape, generator=g,
+                             dtype=torch.int8).to(card)
+
+    return (codes(m, k), (torch.rand((m, 1), generator=g) + 0.01).to(card),
+            codes(n, k), (torch.rand((n, 1), generator=g) + 0.01).to(card))
+
+
+# the tensor-core route's edges: one M tile short or over (63, 65), the
+# fc's passes (223, 365), N under, at and over one 128-wide tile, one k
+# tile (16, 32 bytes: the tensor map's zero fill) and the fc's 615
+@pytest.mark.parametrize("k", [16, 32, 78624])
+@pytest.mark.parametrize("n", [1, 124, 129, 200])
+@pytest.mark.parametrize("m", [1, 63, 65, 223, 365])
+def test_qmm_tensor_core_route_bit_equal(card, m, n, k):
+    xq, sx, wq, sw = _qmm_operands(card, m, n, k, m + n + k)
+    assert qmm_plan(m, n, k, card_fit(card.index or 0))[0] == "wgmma"
+    got = qmm(xq, sx, wq, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmm_ref(xq, sx, wq, sw))
+    assert torch.equal(got, qmm(xq, sx, wq, sw))  # the workspace left zero
+
+
+def test_qmm_split_of_one_k_tile_bit_equal(card):
+    """A K whose last split with any k tile holds a single one, itself
+    ragged."""
+    fit = card_fit(card.index or 0)
+    _, per, splits, _ = qmm_plan(365, 124, 78624, fit)
+    k = K_TILE * per * (splits - 2) + 48
+    route, per2, splits2, _ = qmm_plan(365, 124, k, fit)
+    full = -(-k // K_TILE) // per2  # splits of per2 whole k tiles
+    assert route == "wgmma" and -(-k // K_TILE) == per2 * full + 1
+    xq, sx, wq, sw = _qmm_operands(card, 365, 124, k, 11)
+    got = qmm(xq, sx, wq, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmm_ref(xq, sx, wq, sw))
+
+
+def test_qmm_largest_accumulator_exact(card):
+    """All -128 codes at the fc's K: every sum is 128 * 128 * 78624, the
+    largest, which the splits must add exactly in int32."""
+    xq, sx, wq, sw = _qmm_operands(card, 365, 124, 78624, 0, fill=-128)
+    got = qmm(xq, sx, wq, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmm_ref(xq, sx, wq, sw))
+    acc = torch.full((365, 124), 128 * 128 * 78624, dtype=torch.int32,
+                     device=card)
+    assert torch.equal(got, acc.float() * sx * sw.T)
+
+
+# tile pairs off the diagonal (n 129: three tiles, 200: five) at a d whose
+# last slab of the ring is ragged (d % 96 != 0), on the ring's 16-byte
+# loads (d % 4 == 0) and on the scalar loads; two calls bit-equal
+@pytest.mark.parametrize("d", [96 * 37 + 52, 96 * 200 + 3])
+@pytest.mark.parametrize("n", [129, 200])
+def test_pairwise_dists_kernel_off_diagonal_tiles(card, n, d):
+    rng = np.random.default_rng(n * d)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
+    got = pairwise_dists(x)
+    again = pairwise_dists(x)
+    torch.cuda.synchronize()
+    want = pairwise_dists_ref(x)
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    assert torch.equal(torch.diagonal(got), torch.zeros(n, device=card))
+    sq = (x.double() ** 2).sum(1)
+    err = (got.double() ** 2 - want.double() ** 2).abs()
+    assert bool((err <= 1e-4 * (sq[:, None] + sq[None, :])).all())
 
 
 # The kernel and the plain version compute sigmoid and tanh with the

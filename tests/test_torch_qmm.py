@@ -13,8 +13,9 @@ from repro.kernels.qmm import int8_matmul as ref_int8_matmul
 from repro.kernels.qmm import qmm_ref as ref_qmm_ref
 from repro.kernels.qmm import quantize_weight as ref_quantize_weight
 from repro.kernels.quant import quantize_rows as ref_quantize_rows
-from repro_torch.kernels.qmm import (int8_matmul, int_dot, k_splits, qmm,
-                                     qmm_ref, quantize_weight)
+from repro_torch.kernels.qmm import (CLUSTER, K_TILE, TILE, int8_matmul,
+                                     int_dot, plan, qmm, qmm_ref,
+                                     quantize_weight)
 
 SHAPES = [(8, 15, 32), (100, 33, 17), (257, 64, 96), (3, 78624, 124)]
 
@@ -65,13 +66,58 @@ def test_extreme_codes_are_exact():
     assert acc.dtype == torch.int32 and int(acc.min()) == 128 * 128 * k
 
 
-def test_k_splits_fill_the_card_on_the_fc_only():
-    assert k_splits(365, 124, 78624) == 22  # the fc pass: 12 tiles x 22
-    assert k_splits(2048, 124, 124) == 1  # projection and head
-    assert k_splits(8, 15, 32) == 1
-    for m, n, k in ((365, 124, 78624), (223, 124, 78624), (1, 1, 513)):
-        s = k_splits(m, n, k)
-        assert 1 <= s <= -(-k // 512)
+# clusters of c blocks of the wgmma route that run at once: as an H100
+# runs them (one block an SM, clusters of 8 within a GPC), on 114 SMs
+# packed perfectly, and on a card that runs one
+FITS = {"h100": {8: 15, 4: 33, 2: 66}.get, "sms114": lambda c: 114 // c,
+        "one": lambda c: 1}
+
+
+# the int8 path's products (chip_smoke.py's int8_shapes): the CNN fc in
+# passes of 365 and 223 rows on the tensor cores, the 124-deep LSTM
+# projection and head layers on dp4a
+@pytest.mark.parametrize("m,n,k,route", [(365, 124, 78624, "wgmma"),
+                                         (223, 124, 78624, "wgmma"),
+                                         (2048, 124, 124, "dp4a"),
+                                         (2048, 1, 124, "dp4a")])
+def test_plan_routes_the_int8_path(m, n, k, route):
+    assert plan(m, n, k, FITS["h100"])[0] == route
+    # TMA needs 16-byte-aligned bases: an unaligned operand takes dp4a
+    assert plan(m, n, k, FITS["h100"], aligned=False) == ("dp4a", 0, 1, 1)
+
+
+def test_plan_fills_the_card_on_the_fc():
+    # 3 M tiles x 5 clusters of 8 splits of 16 k tiles (the 39th 7, the
+    # 40th none) = 120 blocks; 2 x 7 clusters in the 223-row pass
+    assert plan(365, 124, 78624, FITS["h100"]) == ("wgmma", 16, 40, 8)
+    assert plan(223, 124, 78624, FITS["h100"]) == ("wgmma", 11, 56, 8)
+
+
+@pytest.mark.parametrize("m,n,k", [(365, 124, 78624), (223, 124, 78624),
+                                   (1, 1, 16), (63, 200, 32),
+                                   (65, 129, 78624), (5, 7, 144),
+                                   (4096, 4096, 4096), (365, 124, 77184)])
+@pytest.mark.parametrize("fit", sorted(FITS))
+def test_plan_covers_every_k_byte_once(m, n, k, fit):
+    route, per, splits, cluster = plan(m, n, k, FITS[fit])
+    assert route == "wgmma" and per >= 1 and 1 <= splits <= 65535
+    assert splits % cluster == 0 and cluster in (1, 2, 4, CLUSTER)
+    assert TILE % cluster == 0  # the ranks split a tile's rows evenly
+    cover = np.zeros(k, np.int64)
+    for s in range(splits):
+        lo, hi = s * per * K_TILE, min((s + 1) * per * K_TILE, k)
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    # only the last cluster's trailing splits may be empty
+    assert (splits - cluster) * per * K_TILE < k
+    tiles = -(-m // TILE) * -(-n // TILE)
+    if cluster > 1:  # one wave
+        assert tiles * splits // cluster <= FITS[fit](cluster)
+
+
+def test_plan_can_leave_a_split_one_k_tile():
+    k = K_TILE * (16 * 38 + 1)  # 609 k tiles: 38 splits of 16, then 1
+    assert plan(365, 124, k, FITS["h100"]) == ("wgmma", 16, 40, 8)
 
 
 @pytest.mark.parametrize("bad", ["xq_dtype", "sx_shape", "wq_k",
