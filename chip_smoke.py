@@ -3,8 +3,9 @@
 
 In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels (nine) from the sources in this
-     checkout, and prints the build's seconds (each source's in its log);
+  2. builds the port's CUDA kernels (nine, the ssd kernel in two routes)
+     from the sources in this checkout, and prints the build's seconds
+     (each source's in its log);
   3. holds each kernel of the fp32 and int8 paths against its plain
      PyTorch version on the card, at the shapes of its path (128 UEs x a
      16-period chunk: B = 2048 estimator rows; the int8 path's fc in
@@ -55,8 +56,21 @@ In order:
      (``scaled_dot_product_attention`` as the yardstick; beside the
      bound, the bf16 kernel's design floor of Q.K^T once and P.V three
      times) and an ``e2e_lm`` line;
-  9. prints the ``{"kernels": [...]}`` line and, last,
-     ``{"ok": true, "device": {...}}``.
+  9. the SSD LM's split serving at mamba2-370m's full width and depth (48
+     layers, d 1024, d_inner 2048, 32 heads x 64, N 128, chunk 256, vocab
+     50280; bf16 weights seeded on the card): the ssd kernel's chunked
+     route against its plain version at SSD_CHECKS (f32 and bf16, chunks
+     of 64, 128, 256 and the whole sequence, two groups) and on layer 0's
+     own inputs at the path's shape (4, 4096, 32, 64, 1, 128, L 256) bf16;
+     ``lm_split_infer`` of 4 x 4096 tokens at split 24 through FP16, INT8
+     and INT4 (cold, then three warm runs, 48 ssd calls a run, all on the
+     chunked route, one quantize launch an integer codec), and the same
+     checks as the dense LM's (head plus tail, the boundary codec, the
+     2-layer cut on the card and the CPU); timings and an ``e2e_ssd_lm``
+     line;
+ 10. prints the ``{"kernels": [...]}`` line (ssd's row with both routes,
+     each at its path's shape) and, last, ``{"ok": true, "device":
+     {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -68,10 +82,12 @@ result.
                                        # times (no ok line)
     python3 chip_smoke.py --qmm        # the same for qmm
     python3 chip_smoke.py --dcor       # the same for pairwise_dists
+    python3 chip_smoke.py --ssd        # the same for ssd's chunked route
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -149,6 +165,22 @@ ATTN_RTOL = 1e-5
 # CPU's sums through such near ties, by 1.8e-7 between the card's two
 # attention routes); bf16: the tests' bf16 bound (tests/test_torch_lm.py)
 LM_BLOCK_RTOL = {"float32": 1e-4, "bfloat16": 0.05}
+# the SSD LM path: mamba2-370m at full width and depth, launch/serve.py's
+# middle split of its 48 megablocks, the same batch and codecs
+SSD_LM_ARCH, SSD_LM_SPLIT = "mamba2-370m", 24
+# the ssd kernel against its plain version, (B, S, L, nh, hd, G, N, dtype):
+# mamba2-370m's heads at chunks of 64, 128 and 256 in f32 and bf16, one
+# chunk of the whole sequence (the shape the XLA route takes where the
+# chunk does not divide S) and two groups; all take the chunked route
+SSD_CHECKS = [(1, 1024, L, 32, 64, 1, 128, dt) for L in (64, 128, 256)
+              for dt in ("float32", "bfloat16")] + [
+    (1, 512, 512, 32, 64, 1, 128, "bfloat16"),
+    (1, 1024, 256, 32, 64, 2, 128, "bfloat16")]
+# y: f32 within 1e-4 of max|y| (sums of up to L * N terms in another order
+# cancel near 0: 6.6e-6 at most on an H100); bf16 each element within one
+# bf16 ulp of its own magnitude over a floor of 1e-5 of max|y|; the state
+# (f32) within 1e-4 of its largest magnitude (1.8e-6 on an H100)
+SSD_RTOL = 1e-4
 # each activation of the forward, and the logits of split inference,
 # card against CPU, relative to the activation's largest magnitude:
 # cuDNN and the CPU sum each convolution in other orders (4.0e-6 at most,
@@ -296,18 +328,20 @@ def shape_totals(per_shape: list) -> dict:
 
 
 def ssd_work(B: int, S: int, nh: int, hd: int, G: int, N: int,
-             L: int) -> tuple[int, int]:
+             L: int, el: int = 4) -> tuple[int, int]:
     """(bytes, flops) of one SSD sequence pass: every input read once and
-    both outputs written once (f32); per (batch, group) and chunk the
-    lower triangle of C.B, the masked intra-chunk product (a difference,
-    an exp and a multiply a (t, s, head), then hd multiply-adds), dt * x,
-    the cumsum, the state term of y and the state update."""
+    both outputs written once (x, B, C and y ``el`` bytes an element, dt,
+    A and the state f32); per (batch, group) and chunk the lower triangle
+    of C.B, the masked intra-chunk product (a difference, an exp and a
+    multiply a (t, s, head), then hd multiply-adds), dt * x, the cumsum,
+    the state term of y, the decay of dt * x a (t, head, d) and the state
+    update (L multiply-adds and the carried decay a (head, d, n))."""
     hpg, nc, tri = nh // G, S // L, L * (L + 1) // 2
-    nbytes = 4 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * G * N
-                  + B * G * hpg * hd * N)
+    nbytes = (el * (2 * B * S * nh * hd + 2 * B * S * G * N)
+              + 4 * (B * S * nh + nh + B * G * hpg * hd * N))
     per_chunk = (2 * N * tri + hpg * tri * (3 + 2 * hd) + L * hpg * hd
                  + 2 * L * hpg + L * hpg * hd * (2 * N + 2)
-                 + hpg * hd * N * (3 * L + 2))
+                 + hpg * L * hd + hpg * hd * N * (2 * L + 2))
     return nbytes, B * G * nc * per_chunk
 
 
@@ -317,16 +351,16 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     run_cells: 1024 UEs over 4 cells, T = 100): the segsum and ssd kernels
     against their plain versions, the path's runs with their launch
     counts, the whole fleet against the port on the CPU, timings and the
-    ``e2e_cells`` line. Returns the two kernels' rows of the kernels
-    line."""
+    ``e2e_cells`` line. Returns segsum's row of the kernels line and the
+    numbers of ssd's fused route there."""
     from repro_torch.channel import scenarios as sc
     from repro_torch.estimator.ssm import (SSMConfig, episode_features,
                                            init_ssm, reduce_forecasts,
                                            ssm_forward_seq)
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
     from repro_torch.kernels.segsum import (segment_reduce_batched,
                                             segment_reduce_ref)
-    from repro_torch.kernels.ssd import ssd, ssd_ref
+    from repro_torch.kernels.ssd import route, ssd, ssd_ref
     from repro_torch.sim import (SchedulerConfig, attach_ring,
                                  build_cells_episode, cell_load,
                                  estimate_fleet, handover_grid,
@@ -433,6 +467,8 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
 
     torch.cuda.reset_peak_memory_stats()
     res, first_s, launches = run()
+    check(ROUTES["ssd"] == {"fused": 1, "chunked": 0},
+          f"the cells run's ssd call takes the fused route ({ROUTES})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     warm_s = []
     for _ in range(3):
@@ -601,15 +637,16 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
          "per": f"one launch at the pf scheduler's shape (1, {n}) -> {C}, "
                f"{T} a run; shapes: each op at both path shapes",
          "shapes": seg_rows},
-        {"name": "ssd", "route": "cuda",
+        {"route": route(x.dtype, nh // Bm.shape[2], hd, Bm.shape[3], L),
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
-         "replaces": "src/repro/kernels/ssd/kernel.py:65",
+         "device_launches_per_call": 1, "path": "cells",
          "launches": launches["ssd"], "max_abs_err": ssd_err[0],
          "state_max_abs_err": ssd_err[1], "ms": ssd_ms,
          "plain_ms": ssd_plain, "bound_ms": ssd_bound, "bound_by": ssd_by,
-         "library_ms": None, "host_ms": ssd_host,
-         "plain_host_ms": ssd_plain_host,
-         "shape": [B, S, nh, hd, Bm.shape[2], Bm.shape[3], L]},
+         "library_ms": None, "library": "none (no one call)",
+         "host_ms": ssd_host, "plain_host_ms": ssd_plain_host,
+         "shape": [B, S, nh, hd, Bm.shape[2], Bm.shape[3], L],
+         "dtype": "float32"},
     ]
 
 
@@ -1044,17 +1081,19 @@ def split_path(dev, argv) -> tuple[dict, dict]:
     return row, {"launches_split": launches["quantize"],
                  "boundary_shapes": qrows}
 
-def attention_close(got, want) -> tuple[bool, float, float]:
-    """(within ATTN_RTOL's bound, max |err|, the largest error over its
-    bound): see ATTN_RTOL."""
+def ulp_close(got, want, f32_rtol: float) -> tuple[bool, float, float]:
+    """(within the bound, max |err|, the largest error over its bound):
+    f32 within ``f32_rtol`` of max|want|; bf16 each element within one
+    bf16 ulp of its own magnitude over a floor of 1e-5 of max|want| (see
+    ATTN_RTOL, SSD_RTOL)."""
     err = (got.float() - want.float()).abs()
     top = float(want.float().abs().max())
     if want.dtype == torch.float32:
-        worst = float(err.max()) / (ATTN_RTOL * top)
+        worst = float(err.max()) / (f32_rtol * top)
     else:
         ulp = torch.exp2(torch.floor(torch.log2(
             want.float().abs().clamp_min(1e-30))) - 7)
-        worst = float((err / (ulp + ATTN_RTOL * top)).max())
+        worst = float((err / (ulp + 1e-5 * top)).max())
     return worst <= 1.0, float(err.max()), worst
 
 
@@ -1084,7 +1123,7 @@ def attention_kernel(dev) -> tuple[list, dict]:
         got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = attention_ref(q, k, v, causal=causal, window=window)
-        ok, err, worst = attention_close(got, want)
+        ok, err, worst = ulp_close(got, want, ATTN_RTOL)
         case = (bh, s, dh, dt, causal, window)
         check(ok and bool(torch.isfinite(got).all()),
               f"flash_attention within its bound of plain at {case} "
@@ -1131,134 +1170,20 @@ def attention_kernel(dev) -> tuple[list, dict]:
     return attn_rows, timing
 
 
-def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
-    """The dense LM's split serving at granite-8b's full width and depth:
-    the flash_attention kernel against its plain version, split inference
-    through the three codecs (cold, then three warm runs) with its launch
-    counts, head plus tail against the forward, the kernel path against
-    ``use_kernel=False``, the card against the port on the CPU (2 layers),
-    timings and the ``e2e_lm`` line. Returns the flash_attention row of
-    the kernels line and the quantize kernel's LM boundary timing."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.core import boundary
-    from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
-    from repro_torch.kernels import LAUNCHES, reset_launches
+def attention_layer0(cfg, params, tokens, dev) -> dict:
+    """flash_attention on layer 0's own q, k, v (batch 1) against its plain
+    version, in f32 (held; the bf16 inputs upcast exactly) and in bf16
+    (reported: the scores reach |s| ~ 1.5e3, so f32 rounding of a near tie
+    moves a weight more than on random data)."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
                                                      flatten_gqa)
-    from repro_torch.kernels.quant import quantize, quantize_ref
-    from repro_torch.models import blocks, init_params, lm
+    from repro_torch.models import blocks, lm
     from repro_torch.models.template import tree_map
 
     bf16 = torch.bfloat16
-    attn_rows, timing = attention_kernel(dev)
-
-    # granite-8b, bf16 weights drawn on the card
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                         device=dev, dtype=bf16)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    tokens = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
-    batch = {"tokens": tokens}
-    n_tok = LM_BATCH * LM_SEQ
-    print(f"lm setup: {LM_ARCH} ({cfg.param_count() / 1e9:.3f} B "
-          f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-          f"bf16) drawn on the card in {init_s:.2f} s; {LM_BATCH} x "
-          f"{LM_SEQ} tokens, split {LM_SPLIT} of {cfg.n_full_patterns}")
-
-    def run(codec):
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = lm_split_infer(cfg, params, batch, LM_SPLIT, codec, device=dev)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, dict(LAUNCHES)
-
-    codecs = (boundary.FP16, boundary.INT8, boundary.INT4)
-    runs = {}
-    torch.cuda.reset_peak_memory_stats()
-    for codec in codecs:
-        out, first_s, launches = run(codec)
-        want = {"flash_attention": cfg.n_layers,
-                "quantize": int(codec.bits < 16)}
-        check(all(launches[k_] == want.get(k_, 0) for k_ in launches),
-              f"{codec.name}: {cfg.n_layers} flash_attention launches and "
-              f"{want['quantize']} quantize a run, no other kernel "
-              f"({launches})")
-        check(out.shape == (LM_BATCH, 1, cfg.vocab)
-              and bool(torch.isfinite(out).all()),
-              f"{codec.name}: finite last-token logits "
-              f"{(LM_BATCH, 1, cfg.vocab)}")
-        warm = []
-        for _ in range(3):
-            again, s_, l_ = run(codec)
-            warm.append(s_)
-            check(l_ == launches and torch.equal(again, out),
-                  f"{codec.name}: a warm run repeats the first")
-        runs[codec.name] = {"out": out, "first_s": first_s, "warm_s": warm,
-                            "launches": launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with torch.inference_mode():
-        full = lm.forward(cfg, params, batch, logits_mode="last", device=dev)
-    check(torch.equal(full, runs["fp16"]["out"]), "head plus tail through "
-          "the FP16 codec equals forward(logits_mode='last') bit for bit")
-    codec_rel = {c: float((runs[c]["out"].float() - full.float()).abs().max()
-                          / full.float().abs().max()) for c in runs}
-
-    # stages of a warm run, and the codec's kernel on the boundary
-    # activation against its plain version
-    stages = {}
-    with torch.inference_mode():
-        for codec in codecs:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            act = lm_head(cfg, params, batch, LM_SPLIT, device=dev)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            sent = boundary.roundtrip(act, codec)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            lm_tail(cfg, params, sent, batch, LM_SPLIT, device=dev)
-            torch.cuda.synchronize()
-            stages[codec.name] = {"head": t1 - t0, "codec": t2 - t1,
-                                  "tail": time.perf_counter() - t2}
-    rows2d = act.reshape(-1, cfg.d_model)  # (16384, 4096) bf16
-    qrows = []
-    for qmax in (127, 7):
-        qq, qs = quantize(rows2d, qmax)
-        torch.cuda.synchronize()
-        rq, rs = quantize_ref(rows2d, qmax)
-        check(torch.equal(qq, rq) and torch.equal(qs, rs), f"quantize "
-              f"bit-equal to plain on the bf16 boundary activation "
-              f"{tuple(rows2d.shape)}, qmax {qmax}")
-        qms, qhost = cuda_ms(lambda: quantize(rows2d, qmax), 50)
-        qpms, qphost = cuda_ms(lambda: quantize_ref(rows2d, qmax), 10)
-        n_, d_ = rows2d.shape
-        qb_ms, qby = bound(3 * n_ * d_ + 4 * n_, 5 * n_ * d_)
-        qrows.append({"shape": [n_, d_], "dtype": "bfloat16", "qmax": qmax,
-                      "count": 1, "ms": qms, "plain_ms": qpms,
-                      "bound_ms": qb_ms, "bound_by": qby, "host_ms": qhost,
-                      "plain_host_ms": qphost})
-    del act, sent, rows2d
-
-    # batch 1 at full depth: the kernel path against use_kernel=False
-    # (reported: see LM_BLOCK_RTOL), and the kernel on layer 0's own q, k,
-    # v against its plain version, in f32 (held; the bf16 inputs upcast
-    # exactly) and in bf16 (reported: the scores reach |s| ~ 1.5e3, so
-    # f32 rounding of a near tie moves a weight more than on random data)
-    b1 = {"tokens": tokens[:1]}
-    with torch.inference_mode():
-        a = lm.forward(cfg, params, b1, logits_mode="last", device=dev)
-        b = lm.forward(cfg, params, b1, logits_mode="last", use_kernel=False,
-                       device=dev)
-        deep_off_rel = float((a.float() - b.float()).abs().max()
-                             / b.float().abs().max())
-        x = lm.embed_in(cfg, params, b1, bf16, dev)
+        x = lm.embed_in(cfg, params, {"tokens": tokens[:1]}, bf16, dev)
         p0 = tree_map(lambda t: t[0], params["groups"][0])["attn"]
         q, k, v = blocks.qkv_proj(cfg, p0, blocks.rms_norm(
             x, p0["ln"], cfg.norm_eps), bf16)
@@ -1283,7 +1208,142 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     check(real["float32"]["rel_to_max"] <= ATTN_RTOL,
           f"flash_attention within {ATTN_RTOL} of max|o| of plain on layer "
           f"0's q, k, v {tuple(qkv[0].shape)} in f32 ({real})")
-    del params, a, b, x, q, k, v, qkv, t3, got, want, err, ulp, full
+    return real
+
+
+def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
+             layer0, route: str | None = None) -> dict:
+    """Split serving of ``arch`` at full width and depth, bf16 weights drawn
+    on the card, LM_BATCH x LM_SEQ seeded tokens split at megablock
+    ``split``: ``lm_split_infer`` through the FP16, INT8 and INT4 codecs
+    (cold, then three warm runs; ``kernel`` launched once a layer, through
+    its ``route`` where it has routes, and quantize once an integer codec,
+    no other kernel), head plus tail
+    through FP16 against the forward, the stages of a warm run, the
+    quantize kernel on the bf16 boundary activation against its plain
+    version, the kernel path against ``use_kernel=False`` at full depth
+    and batch 1 (reported: see LM_BLOCK_RTOL), ``layer0(cfg, params,
+    tokens, dev)`` (the kernel on layer 0's own inputs), and at full width
+    cut to LM_CPU_LAYERS layers each block through the kernel, through
+    ``use_kernel=False`` and through the port on the CPU (f32 and bf16).
+    Returns the numbers of the path's e2e line, the launches of its INT8
+    run and the boundary's quantize rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import boundary
+    from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.models import init_params, lm
+    from repro_torch.models.template import tree_map
+
+    bf16 = torch.bfloat16
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev, dtype=bf16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    batch = {"tokens": tokens}
+    n_tok = LM_BATCH * LM_SEQ
+    print(f"{arch} setup: {cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB bf16, drawn on "
+          f"the card in {init_s:.2f} s; {LM_BATCH} x {LM_SEQ} tokens, split "
+          f"{split} of {cfg.n_full_patterns}")
+
+    def run(codec):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm_split_infer(cfg, params, batch, split, codec, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+    codecs = (boundary.FP16, boundary.INT8, boundary.INT4)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for codec in codecs:
+        out, first_s, launches = run(codec)
+        if route is not None:
+            check(ROUTES[kernel][route] == cfg.n_layers,
+                  f"{arch} {codec.name}: every {kernel} call took the "
+                  f"{route} route ({ROUTES[kernel]})")
+        want = {kernel: cfg.n_layers, "quantize": int(codec.bits < 16)}
+        check(all(launches[k_] == want.get(k_, 0) for k_ in launches),
+              f"{arch} {codec.name}: {cfg.n_layers} {kernel} launches and "
+              f"{want['quantize']} quantize a run, no other kernel "
+              f"({launches})")
+        check(out.shape == (LM_BATCH, 1, cfg.vocab)
+              and bool(torch.isfinite(out).all()),
+              f"{arch} {codec.name}: finite last-token logits "
+              f"{(LM_BATCH, 1, cfg.vocab)}")
+        warm = []
+        for _ in range(3):
+            again, s_, l_ = run(codec)
+            warm.append(s_)
+            check(l_ == launches and torch.equal(again, out),
+                  f"{arch} {codec.name}: a warm run repeats the first")
+        runs[codec.name] = {"out": out, "first_s": first_s, "warm_s": warm,
+                            "launches": launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        full = lm.forward(cfg, params, batch, logits_mode="last", device=dev)
+    check(torch.equal(full, runs["fp16"]["out"]), f"{arch}: head plus tail "
+          "through the FP16 codec equals forward(logits_mode='last') bit "
+          "for bit")
+    codec_rel = {c: float((runs[c]["out"].float() - full.float()).abs().max()
+                          / full.float().abs().max()) for c in runs}
+
+    # stages of a warm run, and the codec's kernel on the boundary
+    # activation against its plain version
+    stages = {}
+    with torch.inference_mode():
+        for codec in codecs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            act = lm_head(cfg, params, batch, split, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sent = boundary.roundtrip(act, codec)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            lm_tail(cfg, params, sent, batch, split, device=dev)
+            torch.cuda.synchronize()
+            stages[codec.name] = {"head": t1 - t0, "codec": t2 - t1,
+                                  "tail": time.perf_counter() - t2}
+    rows2d = act.reshape(-1, cfg.d_model)  # (16384, d_model) bf16
+    qrows = []
+    for qmax in (127, 7):
+        qq, qs = quantize(rows2d, qmax)
+        torch.cuda.synchronize()
+        rq, rs = quantize_ref(rows2d, qmax)
+        check(torch.equal(qq, rq) and torch.equal(qs, rs), f"quantize "
+              f"bit-equal to plain on {arch}'s bf16 boundary activation "
+              f"{tuple(rows2d.shape)}, qmax {qmax}")
+        qms, qhost = cuda_ms(lambda: quantize(rows2d, qmax), 50)
+        qpms, qphost = cuda_ms(lambda: quantize_ref(rows2d, qmax), 10)
+        n_, d_ = rows2d.shape
+        qb_ms, qby = bound(3 * n_ * d_ + 4 * n_, 5 * n_ * d_)
+        qrows.append({"shape": [n_, d_], "dtype": "bfloat16", "qmax": qmax,
+                      "count": 1, "ms": qms, "plain_ms": qpms,
+                      "bound_ms": qb_ms, "bound_by": qby, "host_ms": qhost,
+                      "plain_host_ms": qphost})
+    del act, sent, rows2d
+
+    # batch 1 at full depth: the kernel path against use_kernel=False
+    # (reported: see LM_BLOCK_RTOL); the kernel on layer 0's own inputs
+    with torch.inference_mode():
+        b1 = {"tokens": tokens[:1]}
+        a = lm.forward(cfg, params, b1, logits_mode="last", device=dev)
+        b = lm.forward(cfg, params, b1, logits_mode="last", use_kernel=False,
+                       device=dev)
+        deep_off_rel = float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max())
+    real = layer0(cfg, params, tokens, dev)
+    del params, a, b, full
     for r in runs.values():
         del r["out"]
     torch.cuda.empty_cache()
@@ -1299,7 +1359,6 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     cut, cpu_s = {}, 0.0
     for dtype in (torch.float32, bf16):
         name = str(dtype).split(".")[-1]
-        rtol = LM_BLOCK_RTOL[name]
         p2 = init_params(c2, torch.Generator(device=dev).manual_seed(
             SEED + 1), device=dev, dtype=dtype)
         pc = tree_map(lambda t: t.cpu(), p2)  # the same bits
@@ -1341,22 +1400,20 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
                 ca[0, -1].argmax()))
         del p2, pc
         torch.cuda.empty_cache()
-    print(f"lm path: lm_split_infer({LM_ARCH}, {LM_BATCH} x {LM_SEQ}, split "
-          f"{LM_SPLIT}) launches "
+    print(f"{arch} path: lm_split_infer({LM_BATCH} x {LM_SEQ}, split "
+          f"{split}) launches "
           f"{ {c: r['launches'] for c, r in runs.items()} }; codecs vs the "
           f"forward (max |diff| / max |logit|) {codec_rel}; full depth, "
           f"batch 1, use_kernel=False vs the kernel path {deep_off_rel:.3g} "
-          f"(reported); layer 0's attention on its own q, k, v {real}; "
+          f"(reported); layer 0's {kernel} on its own inputs {real}; "
           f"{LM_CPU_LAYERS} layers at full width (card vs CPU {cpu_s:.1f} s "
-          f"on the CPU) {cut}; SDPA vs plain max |err| "
-          f"{timing['library_max_abs_err']:.3g}; peak "
-          f"device memory {peak_gib:.2f} GiB")
+          f"on the CPU) {cut}; peak device memory {peak_gib:.2f} GiB")
     for name, rtol in LM_BLOCK_RTOL.items():
         for what in ("use_kernel_false", "cpu", "logits_cpu"):
-            check(cut[name][what] <= rtol, f"{name}, {LM_CPU_LAYERS} layers "
-                  f"at full width: each block's (or the logits') "
-                  f"{what.replace('_', ' ')} output within {rtol} of its "
-                  f"largest magnitude ({cut[name][what]:.3g})")
+            check(cut[name][what] <= rtol, f"{arch}, {name}, "
+                  f"{LM_CPU_LAYERS} layers at full width: each block's (or "
+                  f"the logits') {what.replace('_', ' ')} output within "
+                  f"{rtol} of its largest magnitude ({cut[name][what]:.3g})")
 
     busy = None
     if "--profile" in argv:
@@ -1372,15 +1429,16 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
         device_s = sum(e.self_device_time_total for e in avg
                        if e.device_type == DeviceType.CUDA) / 1e6
         busy = device_s / float(np.median(runs["int8"]["warm_s"]))
-        print(f"profiled INT8 split inference: {wall:.3f} s wall, device "
-              f"time {device_s:.3f} s ({busy:.1%} of the warm run's median)")
+        print(f"profiled {arch} INT8 split inference: {wall:.3f} s wall, "
+              f"device time {device_s:.3f} s ({busy:.1%} of the warm run's "
+              "median)")
         print(avg.table(sort_by="self_cuda_time_total", row_limit=20))
         del params
         torch.cuda.empty_cache()
 
-    print(json.dumps({"e2e_lm": {
-        "arch": LM_ARCH, "layers": cfg.n_layers, "batch": LM_BATCH,
-        "seq": LM_SEQ, "split": LM_SPLIT, "tokens": n_tok,
+    e2e = {
+        "arch": arch, "layers": cfg.n_layers, "batch": LM_BATCH,
+        "seq": LM_SEQ, "split": split, "tokens": n_tok,
         "card": smi, "init_s": init_s,
         "codecs": {c: {"first_s": r["first_s"], "warm_s": r["warm_s"],
                        "tokens_per_s": n_tok / float(np.median(r["warm_s"])),
@@ -1390,18 +1448,145 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
         "stages_s": stages, "peak_device_gib": peak_gib,
         "device_busy": busy, "codec_vs_forward_rel": codec_rel,
         "full_depth_use_kernel_false_rel": deep_off_rel,
-        "layer0_attention": real, "cut_to_2_layers": cut,
-        "attention_checks": attn_rows}}))
+        f"layer0_{kernel}": real, "cut_to_2_layers": cut}
+    return {"e2e": e2e, "launches": runs["fp16"]["launches"][kernel],
+            "quantize_launches": runs["int8"]["launches"]["quantize"],
+            "boundary": qrows}
+
+
+def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
+    """The dense LM's split serving at granite-8b's full width and depth:
+    the flash_attention kernel against its plain version, then
+    ``serve_lm`` with the kernel on layer 0's own q, k, v, and the
+    ``e2e_lm`` line. Returns the flash_attention row of the kernels line
+    and the quantize kernel's LM boundary timing."""
+    attn_rows, timing = attention_kernel(dev)
+    res = serve_lm(dev, smi, argv, LM_ARCH, LM_SPLIT, "flash_attention",
+                   attention_layer0)
+    print(f"SDPA vs plain max |err| {timing['library_max_abs_err']:.3g}")
+    print(json.dumps({"e2e_lm": dict(res["e2e"],
+                                     attention_checks=attn_rows)}))
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-           "launches": runs["fp16"]["launches"]["flash_attention"],
+           "launches": res["launches"],
            "max_abs_err": attn_rows[0]["max_abs_err"], **timing,
            "dtype": "bfloat16", "causal": True,
-           "per": f"one launch at the path's shape, {cfg.n_layers} a split "
-                  "inference"}
-    return row, {"launches_lm": runs["int8"]["launches"]["quantize"],
-                 "lm_boundary": qrows}
+           "per": f"one launch at the path's shape, {res['launches']} a "
+                  "split inference"}
+    return row, {"launches_lm": res["quantize_launches"],
+                 "lm_boundary": res["boundary"]}
+
+
+def ssd_held(x, dt, A, Bm, Cm, L, what: str) -> dict:
+    """ssd (whichever route its wrapper takes) against ssd_ref on the same
+    tensors, held to SSD_RTOL for y and the state; returns the errors."""
+    from repro_torch.kernels.ssd import ssd, ssd_ref
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+    ok, err, worst = ulp_close(y, yr, SSD_RTOL)
+    s_rel = float((st - sr).abs().max() / sr.abs().max())
+    check(ok and s_rel <= SSD_RTOL and bool(torch.isfinite(y).all()),
+          f"ssd within its bound of plain at {what} (y max |err| {err:.3g}, "
+          f"{worst:.3g} of the bound; state {s_rel:.3g} of its max)")
+    return {"max_abs_err": err, "of_bound": worst, "state_rel": s_rel}
+
+
+def ssd_checks(dev) -> list:
+    """The ssd kernel against its plain version at every SSD_CHECKS case,
+    on seeded random inputs."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    checks = []
+    for B, S, L, nh, hd, G, N, dt_name in SSD_CHECKS:
+        dtype = getattr(torch, dt_name)
+
+        def t(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        x, Bm, Cm = (t(B, S, nh, hd).to(dtype), t(B, S, G, N).to(dtype),
+                     t(B, S, G, N).to(dtype))
+        dt = torch.nn.functional.softplus(t(B, S, nh)) * 0.5
+        A = -torch.exp(t(nh) * 0.3)
+        case = (B, S, L, nh, hd, G, N, dt_name)
+        checks.append(dict(ssd_held(x, dt, A, Bm, Cm, L, str(case)),
+                           case=list(case)))
+        del x, Bm, Cm, dt
+    print(f"ssd (chunked route) vs plain: {checks}")
+    return checks
+
+
+def ssd_layer0(cfg, params, tokens, dev, by_launch: bool = False) -> dict:
+    """The ssd kernel on layer 0's own inputs (all LM_BATCH x LM_SEQ
+    tokens, bf16) against its plain version, held to SSD_RTOL, and timed
+    there beside its plain version and its bound; with ``by_launch`` its
+    device time also split by device launch with torch.profiler."""
+    from repro_torch.kernels.ssd import route, ssd, ssd_ref
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.template import tree_map
+
+    with torch.inference_mode():
+        x = lm.embed_in(cfg, params, {"tokens": tokens}, torch.bfloat16, dev)
+        p0 = tree_map(lambda t: t[0], params["groups"][0])["ssd"]
+        _, xh, Bg, Cg, dt, A, _ = blocks._ssd_inputs(cfg, p0, x,
+                                                     torch.bfloat16)
+        L = min(cfg.ssm_chunk, LM_SEQ)
+        B, S, nh, hd = xh.shape
+        G, N = Bg.shape[2], Bg.shape[3]
+        real = ssd_held(xh, dt, A, Bg, Cg, L,
+                        f"layer 0's inputs {(B, S, nh, hd, G, N, L)} bf16")
+        ms, host = cuda_ms(lambda: ssd(xh, dt, A, Bg, Cg, chunk=L), 20)
+        pms, phost = cuda_ms(lambda: ssd_ref(xh, dt, A, Bg, Cg, L), 2)
+        if by_launch:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof_run:
+                for _ in range(5):
+                    ssd(xh, dt, A, Bg, Cg, chunk=L)
+                torch.cuda.synchronize()
+            split = {}
+            for e in prof_run.key_averages():
+                name = re.search(r"chunk_\w+|state_passing", e.key)
+                if e.device_type == DeviceType.CUDA and name:
+                    split[name.group(0)] = e.self_device_time_total / 5e3
+    nbytes, flops = ssd_work(B, S, nh, hd, G, N, L, el=2)
+    b_ms, by = bound(nbytes, flops)
+    real.update({"route": route(xh.dtype, nh // G, hd, N, L),
+                 "device_launches_per_call": 5,
+                 "shape": [B, S, nh, hd, G, N, L], "dtype": "bfloat16",
+                 "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                 "bound_by": by, "library_ms": None,
+                 "library": "none (no one call)", "host_ms": host,
+                 "plain_host_ms": phost})
+    if by_launch:
+        real["device_ms_by_kernel"] = split
+    print(f"ssd (chunked route) at the path's shape "
+          f"{tuple(real['shape'])} bf16: {ms:.4f} ms (bound {b_ms:.4f} "
+          f"ms, {by}), plain {pms:.3f} ms")
+    return real
+
+
+def ssd_lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
+    """Split serving of the SSD LM at mamba2-370m's full width and depth:
+    the ssd kernel against its plain version at SSD_CHECKS, then
+    ``serve_lm`` with the kernel on layer 0's own inputs (held and
+    timed), and the ``e2e_ssd_lm`` line. Returns the chunked route's
+    numbers for the ssd row and the quantize kernel's boundary timing."""
+    checks = ssd_checks(dev)
+    res = serve_lm(dev, smi, argv, SSD_LM_ARCH, SSD_LM_SPLIT, "ssd",
+                   ssd_layer0, route="chunked")
+    print(json.dumps({"e2e_ssd_lm": dict(res["e2e"], ssd_checks=checks)}))
+    real = res["e2e"]["layer0_ssd"]
+    chunked = {k: real[k] for k in (
+        "route", "device_launches_per_call", "shape", "dtype", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+        "host_ms", "plain_host_ms", "max_abs_err", "state_rel")}
+    chunked.update({"source": "src/repro_torch/kernels/csrc/ssd_chunked.cu",
+                    "launches": res["launches"], "path": SSD_LM_ARCH,
+                    "max_abs_err_checks": max(c["max_abs_err"]
+                                              for c in checks)})
+    return chunked, {"launches_ssd_lm": res["quantize_launches"],
+                     "ssd_lm_boundary": res["boundary"]}
 
 
 def main(argv: list[str]) -> int:
@@ -1469,6 +1654,18 @@ def main(argv: list[str]) -> int:
                         torch.Generator(device=dev).manual_seed(SEED))
         print(json.dumps({"qmm": dict(shape_totals(rows), card=smi,
                                       shapes=rows)}))
+        return 0
+    if "--ssd" in argv:  # the ssd kernel's checks and time at the LM's call
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        cfg = get_config(SSD_LM_ARCH)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev, dtype=torch.bfloat16)
+        tokens = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
+        print(json.dumps({"ssd": dict(
+            ssd_layer0(cfg, params, tokens, dev, by_launch=True), card=smi,
+            checks=ssd_checks(dev))}))
         return 0
     if "--dcor" in argv:  # pairwise_dists' checks and profile-run times
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1849,9 +2046,12 @@ def main(argv: list[str]) -> int:
         "peak_device_gib": peak8_gib, "rmse_vs_fp32_mbps": rmse8}}))
 
     # 6. the multi-cell scheduled fleet on the recurrent SSM estimator
-    kernels += cells_path(dev, prof, table, cfg, fixed, argv)
-    for k in kernels[-2:]:
-        print(json.dumps(k))
+    seg_row, ssd_fused = cells_path(dev, prof, table, cfg, fixed, argv)
+    check(ssd_fused["route"] == "fused", "the cells path's ssd call takes "
+          f"the fused route ({ssd_fused['route']})")
+    kernels.append(seg_row)
+    print(json.dumps(seg_row))
+    print(json.dumps({"ssd_fused_route": ssd_fused}))
 
     # 7. split computing: VGG16 at full width with a measured privacy
     # profile
@@ -1866,6 +2066,25 @@ def main(argv: list[str]) -> int:
     next(k for k in kernels if k["name"] == "quantize").update(quant_lm)
     kernels.append(attn_row)
     print(json.dumps(attn_row))
+
+    # 9. split serving of the SSD LM at mamba2-370m's full width and depth
+    torch.cuda.empty_cache()
+    ssd_chunked, quant_ssd = ssd_lm_path(dev, smi, argv)
+    next(k for k in kernels if k["name"] == "quantize").update(quant_ssd)
+    ssd_row = {
+        "name": "ssd", "route": "cuda", "source": ssd_chunked["source"],
+        "replaces": "src/repro/kernels/ssd/kernel.py:65",
+        "launches": ssd_chunked["launches"],
+        "max_abs_err": ssd_chunked["max_abs_err"],
+        **{k: ssd_chunked[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "per": f"one call (5 device launches) at the SSD LM's shape "
+               f"{ssd_chunked['shape']} bf16, {ssd_chunked['launches']} a "
+               "split inference; routes: each route at its own path's "
+               "shape, with that path's calls a run",
+        "routes": {"chunked": ssd_chunked, "fused": ssd_fused}}
+    kernels.append(ssd_row)
+    print(json.dumps(ssd_row))
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile

@@ -13,7 +13,8 @@ tensors, and the tests and ``chip_smoke.py`` hold the kernel to it.
   qmm        int8 x int8 -> int32 rowwise-scaled matrix product
   segsum     batched segment sum / max (the PRB scheduler's normalizers,
              the per-cell load)
-  ssd        Mamba-2 chunked SSD scan (the recurrent estimator's mixer)
+  ssd        Mamba-2 chunked SSD scan (the recurrent estimator's and the
+             SSD LM's mixer), a fused and a chunk-parallel route
   dcor       pairwise Euclidean distances (distance correlation, the
              split-computing privacy metric)
   flash_attention
@@ -23,4 +24,5 @@ tensors, and the tests and ``chip_smoke.py`` hold the kernel to it.
 from repro_torch.kernels import (dcor, featurize,  # noqa: F401
                                  flash_attention, lstm, qmm, quant, segsum,
                                  ssd)
-from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels._build import (LAUNCHES, ROUTES,  # noqa: F401
+                                       reset_launches)

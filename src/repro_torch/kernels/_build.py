@@ -14,7 +14,8 @@ the featurize kernel is pinned bit-equal to the true-division reference.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
-that it went through the kernels. ``max_clusters``, ``device_stream`` and
+that it went through the kernels; ``ROUTES`` counts, for a wrapper with
+more than one kernel, which it ran. ``max_clusters``, ``device_stream`` and
 ``scratch`` are what the wrappers ask of a card before a launch, cheaply.
 """
 from __future__ import annotations
@@ -65,6 +66,10 @@ _SIGNATURES = {
     #  stream)
     "repro_ssd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P],
+    # (x, dt, a, bm, cm, y, state, lcum, states, cbT, batch, seqlen, nh,
+    #  hd, groups, n, chunk, bf16, stream)
+    "repro_ssd_chunked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _P],
     # (x, work, out, tickets, n, d, chunk, splits, cluster, stream) and
     # (x, out, n, d, stream)
     "repro_pairwise_dists_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -83,6 +88,8 @@ _SIGNATURES = {
 LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
             "lstm_scan_q": 0, "segsum": 0, "ssd": 0, "pairwise_dists": 0,
             "flash_attention": 0}
+# calls of each route of a wrapper that chooses one, beside its LAUNCHES
+ROUTES = {"ssd": {"fused": 0, "chunked": 0}}
 
 _lock = threading.Lock()
 _lib = None
@@ -93,6 +100,9 @@ _scratch = {}  # (card, stream, dtype, zeroed) -> buffer, see scratch
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTES.values():
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

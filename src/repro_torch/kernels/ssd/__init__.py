@@ -8,17 +8,18 @@ Inputs are the post-projection tensors of one sequence:
   Cm (B, S, G, N)     output-contraction vectors
 Output: y (B, S, nh, hd) and the final state (B, G, nh // G, hd, N).
 
-``ssd`` is the wrapper of the CUDA kernel ``csrc/ssd.cu``; ``ssd_ref`` is
-its plain PyTorch version (the reference's ``ref.py``), which the wrapper
-runs for tensors on the CPU and the tests hold the kernel to.
+``ssd`` is the wrapper of the CUDA kernels, which takes x, Bm and Cm in
+f32 or bf16 and any chunk: by ``route``, ``csrc/ssd.cu`` (fused: f32
+chunks whose working set fits one block, the recurrent estimator's) or
+``csrc/ssd_chunked.cu`` (chunk-parallel: every other shape, the SSD LM's).
+``ssd_ref`` is their plain PyTorch version (the reference's ``ref.py``),
+which the wrapper runs for tensors on the CPU and the tests hold the
+kernels to.
 ``ssd_mixer`` is the dispatch the estimator calls. ``ssd_step`` is the
 same recurrence for one step with an explicit carried state, in plain
 torch ops as the reference keeps it (a single step has no tile structure
 worth a kernel): scanning it over S steps from a zero state reproduces
 the sequence pass.
-
-The kernel takes f32 only; bf16 inputs and the LM stack's widths wait for
-ROADMAP.md module queue item 17 (the SSD LM).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import torch
 from repro_torch.kernels import _build
 
 F32 = torch.float32
-MAX_CHUNK = 256  # longest chunk the kernel takes
+DTYPES = (F32, torch.bfloat16)
+FUSED_MAX_CHUNK = 256  # longest chunk the fused route takes
 SMEM_BYTES = 232448  # shared memory a block may have on the H100
 
 
@@ -91,9 +93,21 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk: int):
 
 
 def smem_bytes(hpg: int, hd: int, n: int, chunk: int) -> int:
-    """Shared memory one block of the kernel needs (``csrc/ssd.cu``)."""
+    """Shared memory one block of the fused route needs (``csrc/ssd.cu``)."""
     return 4 * (3 * chunk * hpg + 2 * chunk * n + chunk * hpg * hd
                 + chunk * (chunk + 1) // 2 + hpg * hd * n)
+
+
+def route(dtype: torch.dtype, hpg: int, hd: int, n: int, chunk: int) -> str:
+    """The kernel a card runs for these inputs: "fused" (``csrc/ssd.cu``,
+    one block a (batch, group) row with the carried state in shared memory)
+    for f32 chunks of at most ``FUSED_MAX_CHUNK`` steps whose working set
+    fits a block, "chunked" (``csrc/ssd_chunked.cu``, chunk states, state
+    passing, C.B and chunk scan in five launches) for everything else."""
+    if (dtype == F32 and chunk <= FUSED_MAX_CHUNK
+            and smem_bytes(hpg, hd, n, chunk) <= SMEM_BYTES):
+        return "fused"
+    return "chunked"
 
 
 def _check(x, dt, A, Bm, Cm):
@@ -104,13 +118,16 @@ def _check(x, dt, A, Bm, Cm):
     G, N = Bm.shape[2], Bm.shape[3]
     if G < 1 or nh % G:
         raise ValueError(f"{nh} heads do not split into {G} groups")
+    if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"the ssd kernel takes x, Bm and Cm all float32 or "
+                        f"all bfloat16, got {x.dtype}, {Bm.dtype} and "
+                        f"{Cm.dtype}")
     want = {"dt": (B, S, nh), "A": (nh,), "Bm": (B, S, G, N),
             "Cm": (B, S, G, N)}
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.dtype != F32:
-            raise TypeError(
-                f"the ssd kernel takes float32 only, {name} is {t.dtype}: "
-                "bf16 waits for ROADMAP.md module queue item 17")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"the ssd kernel takes float32 or bfloat16, "
+                            f"{name} is {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -122,12 +139,14 @@ def _check(x, dt, A, Bm, Cm):
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, *, chunk: int = 256):
-    """The SSD kernel: contiguous f32 inputs as above, S a multiple of
-    ``min(chunk, S)`` -> (y (B, S, nh, hd), state (B, G, hpg, hd, N)).
+    """The SSD kernel: contiguous inputs as above, x, Bm and Cm all f32 or
+    all bf16, S a multiple of ``L = min(chunk, S)`` -> (y (B, S, nh, hd)
+    in x's dtype, state (B, G, hpg, hd, N) f32).
 
-    Tensors on the CPU run ``ssd_ref``; on a card the CUDA kernel runs, or
-    this raises. The kernel takes chunks of at most ``MAX_CHUNK`` steps
-    whose working set fits a block's shared memory (``smem_bytes``)."""
+    Tensors on the CPU run ``ssd_ref``; on a card the kernel ``route``
+    picks runs, or this raises. dt and A are taken in f32 (a bf16 one is
+    cast, exactly). The chunked route allocates f32 workspaces of
+    B * S * nh * (1 + hd * N / L) + B * S * G * L values."""
     _check(x, dt, A, Bm, Cm)
     B, S, nh, hd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -139,25 +158,37 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         return ssd_ref(x, dt, A, Bm, Cm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd kernel for device {x.device}")
+    dt, A = dt.to(F32), A.to(F32)
     hpg = nh // G
-    need = smem_bytes(hpg, hd, N, L)
-    if L > MAX_CHUNK or need > SMEM_BYTES:
-        raise ValueError(
-            f"the ssd kernel takes chunks of at most {MAX_CHUNK} steps whose "
-            f"working set fits {SMEM_BYTES} B of shared memory; chunk {L} "
-            f"with hpg {hpg}, hd {hd}, N {N} needs {need} B")
     y = torch.empty_like(x)
     state = torch.empty((B, G, hpg, hd, N), dtype=F32, device=x.device)
     if B == 0:
         return y, state
     lib = _build.library()
+    which = route(x.dtype, hpg, hd, N, L)
     with torch.cuda.device(x.device):
-        rc = lib.repro_ssd_f32(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, nh, hd, G, N,
-            L, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(rc, "ssd")
+        stream = torch.cuda.current_stream().cuda_stream
+        if which == "fused":
+            rc = lib.repro_ssd_f32(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, nh, hd,
+                G, N, L, stream)
+        else:
+            # f32 workspaces: the cumulative decays, each chunk's state
+            # and each chunk's C.B (2, 67 and 17 MB at the SSD LM's call)
+            lcum = torch.empty((B, nh, S), dtype=F32, device=x.device)
+            states = torch.empty((B, S // L, nh, hd, N), dtype=F32,
+                                 device=x.device)
+            cbT = torch.empty((B, S // L, G, L, L), dtype=F32,
+                              device=x.device)
+            rc = lib.repro_ssd_chunked(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                lcum.data_ptr(), states.data_ptr(), cbT.data_ptr(), B, S, nh,
+                hd, G, N, L, int(x.dtype == torch.bfloat16), stream)
+    _build.check_launch(rc, f"ssd ({which})")
     _build.LAUNCHES["ssd"] += 1
+    _build.ROUTES["ssd"][which] += 1
     return y, state
 
 

@@ -1,4 +1,5 @@
-"""Transformer building blocks of the dense LM (template-driven).
+"""Building blocks of the LM: attention, the MLP and the Mamba-2 SSD mixer
+(template-driven).
 
 Every block has a ``*_template(cfg)`` returning a ParamSpec tree and a
 forward taking ``(cfg, params, x, ...)``. Compute runs in the given dtype
@@ -15,8 +16,15 @@ full-sequence self-attention to the ``flash_attention`` kernel through
 ``kernels.flash_attention.mha``; ``use_kernel=False`` takes
 ``local_attention`` for a window shorter than the sequence,
 ``chunked_attention`` past ``ATTN_CHUNK`` tokens and ``direct_attention``
-otherwise. The MoE, recurrent, cross-attention and SSD blocks, and the
-decode caches, are later slices (``lm.check_ported``).
+otherwise.
+
+The SSD mixer routes as the reference's ``ssd_block``: ``use_kernel=True``
+sends the chunked scan to the ``ssd`` kernel (``kernels.ssd``) with the
+chunk ``min(ssm_chunk, S)``, which must divide S; ``use_kernel=False`` is
+the reference's XLA route, its plain version in f32 with the whole
+sequence as one chunk where the chunk does not divide S. The MoE,
+recurrent and cross-attention blocks, ``ssd_decode`` and the decode caches
+are later slices (``lm.check_ported``).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import mha
+from repro_torch.kernels.ssd import ssd, ssd_ref
 from repro_torch.models.template import ParamSpec
 
 F32 = torch.float32
@@ -246,3 +255,84 @@ def mlp_block(cfg, p, x, dtype=DEFAULT_COMPUTE):
     g = _act(cfg.act)(_proj(h, p["wg"], dtype))
     u = _proj(h, p["wu"], dtype)
     return _proj(g * u, p["wd"], dtype)
+
+
+# ------------------------------------------------------------------ Mamba2 SSD
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv. x (B, S, W), w (cw, W); ``state`` (B, cw - 1,
+    W), the previous inputs, or None for zeros on the left. Returns (y,
+    new state: the last cw - 1 rows of the padded input, None when cw is
+    1)."""
+    cw = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([cast(state, x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(cw))
+    new_state = xp[:, -(cw - 1):] if cw > 1 else None
+    return y + b, new_state
+
+
+def ssd_template(cfg):
+    D, Din, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh, G, cw = cfg.d_inner // cfg.ssm_headdim, cfg.ssm_ngroups, \
+        cfg.conv1d_width
+    return {
+        "ln": ParamSpec((D,), ("embed",), init="zeros"),
+        "wz": ParamSpec((D, Din), ("fsdp", "ff")),
+        "wx": ParamSpec((D, Din), ("fsdp", "ff")),
+        "wB": ParamSpec((D, G * N), ("fsdp", None)),
+        "wC": ParamSpec((D, G * N), ("fsdp", None)),
+        "wdt": ParamSpec((D, nh), ("fsdp", "heads")),
+        "dt_bias": ParamSpec((nh,), ("heads",), init="zeros"),
+        "A_log": ParamSpec((nh,), ("heads",), init="normal", scale=0.5),
+        "Dskip": ParamSpec((nh,), ("heads",), init="ones"),
+        "conv_x": ParamSpec((cw, Din), (None, "ff"), init="fan_in"),
+        "conv_B": ParamSpec((cw, G * N), (None, None), init="fan_in"),
+        "conv_C": ParamSpec((cw, G * N), (None, None), init="fan_in"),
+        "norm": ParamSpec((Din,), ("ff",), init="zeros"),
+        "wo": ParamSpec((Din, D), ("ff", "fsdp")),
+    }
+
+
+def _ssd_inputs(cfg, p, x, dtype):
+    """The mixer's inputs over a full sequence: z (B, S, Din), x (B, S, nh,
+    hd), B and C (B, S, G, N) in ``dtype`` after the conv and silu; dt (B,
+    S, nh) = softplus(h wdt + dt_bias) and A = -exp(A_log) (nh,) in f32;
+    and the conv states {"x", "B", "C"}."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    z = _proj(h, p["wz"], dtype)
+    u = _proj(h, p["wdt"], dtype).to(F32) + cast(p["dt_bias"], F32)
+    dt = torch.logaddexp(u, torch.zeros_like(u))  # jax.nn.softplus
+    conv, states = {}, {}
+    for name in ("x", "B", "C"):
+        t, states[name] = _causal_conv(_proj(h, p["w" + name], dtype),
+                                       cast(p["conv_" + name], dtype), 0.0)
+        conv[name] = F.silu(t)
+    Bsz, S = x.shape[:2]
+    nh, G, N = cfg.d_inner // cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    xh = conv["x"].reshape(Bsz, S, nh, cfg.ssm_headdim)
+    Bg = conv["B"].reshape(Bsz, S, G, N)
+    Cg = conv["C"].reshape(Bsz, S, G, N)
+    A = -torch.exp(cast(p["A_log"], F32))
+    return z, xh, Bg, Cg, dt, A, states
+
+
+def ssd_block(cfg, p, x, dtype=DEFAULT_COMPUTE, use_kernel=True):
+    """The Mamba-2 mixer, full-sequence: quadratic within chunks, the state
+    recurrence across them. Returns (the residual delta (B, S, D), the
+    cache {"s": final state (B, G, hpg, hd, N) f32, "conv": the conv
+    states in bf16})."""
+    z, xh, Bg, Cg, dt, A, conv_states = _ssd_inputs(cfg, p, x, dtype)
+    Bsz, S = x.shape[:2]
+    L = min(cfg.ssm_chunk, S)
+    if use_kernel:  # y in the compute dtype; S % L raises
+        y, s_last = ssd(xh, dt, A, Bg, Cg, chunk=L)
+    else:  # y in f32 until the gate, one chunk where L does not divide S
+        y, s_last = ssd_ref(cast(xh, F32), dt, A, Bg, Cg, S if S % L else L)
+    y = cast(y, F32) + cast(p["Dskip"], F32)[:, None] * cast(xh, F32)
+    y = y.reshape(Bsz, S, cfg.d_inner)
+    y = rms_norm(cast(y, dtype) * F.silu(z), p["norm"], cfg.norm_eps)
+    cache = {"s": s_last, "conv": {k: cast(v, torch.bfloat16)
+                                   for k, v in conv_states.items()}}
+    return _proj(y, p["wo"], dtype), cache

@@ -1,5 +1,5 @@
 """Pattern-grouped LM: repeated megablocks of ``cfg.pattern`` plus an
-unrolled remainder, for the dense attention configurations.
+unrolled remainder, for the dense attention and the SSD configurations.
 
 Parameters are the reference's tree (``model_template``): ``embed``,
 ``groups`` (one tree per pattern position, each leaf stacked over the
@@ -7,7 +7,7 @@ Parameters are the reference's tree (``model_template``): ``embed``,
 ``final_ln`` and, unless the embeddings are tied, ``head``. The forward is
 full-sequence (train, or prefill without a cache) and walks the stacked
 layers with a Python loop; ``decode_step``, caches, ``lm_loss`` and the
-MoE, recurrent, cross-attention and SSD blocks are later slices, and
+MoE, recurrent and cross-attention blocks are later slices, and
 ``check_ported`` names their ROADMAP.md queue items.
 """
 from __future__ import annotations
@@ -33,18 +33,19 @@ def check_ported(cfg) -> None:
     if cfg.is_moe:
         raise _not_ported(f"{cfg.name}: MoE blocks", "18")
     for spec in cfg.pattern:
-        if spec.kind == "ssd":
-            raise _not_ported(f"{cfg.name}: the SSD LM block", "17")
         if spec.kind in ("rec", "cross"):
             raise _not_ported(f"{cfg.name}: {spec.kind!r} blocks", "19")
-        if spec.kind not in ("attn", "local"):
+        if spec.kind not in ("attn", "local", "ssd"):
             raise ValueError(f"unknown block kind {spec.kind!r}")
 
 
 # ------------------------------------------------------------------ templates
 def block_template(cfg, spec):
-    """An attention block ("attn" or "local"; ``check_ported`` refuses the
-    others): attention then the dense MLP."""
+    """An attention block ("attn" or "local"): attention then the dense
+    MLP; an "ssd" block: the mixer alone. ``check_ported`` refuses the
+    others."""
+    if spec.kind == "ssd":
+        return {"ssd": B.ssd_template(cfg)}
     return {"attn": B.attn_template(cfg), "ffn": B.mlp_template(cfg)}
 
 
@@ -74,9 +75,12 @@ def _apply_ffn(cfg, p, x, dtype):
 def apply_block(cfg, spec, p, x, *, positions, mode="train",
                 dtype=B.DEFAULT_COMPUTE, use_kernel=True):
     """One block, full-sequence: attention then the MLP, each added to the
-    residual stream."""
+    residual stream; or the SSD mixer, added to it."""
     if mode not in ("train", "prefill"):
         raise _not_ported(f"mode={mode!r} (decode and its caches)", "20")
+    if spec.kind == "ssd":
+        delta, _ = B.ssd_block(cfg, p["ssd"], x, dtype, use_kernel)
+        return x + delta
     x = x + B.attention_block(cfg, p["attn"], x, kind=spec.kind,
                               window=spec.window, positions=positions,
                               dtype=dtype, use_kernel=use_kernel)
@@ -155,7 +159,8 @@ def forward(cfg, params, batch, *, mode="train", dtype=B.DEFAULT_COMPUTE,
     {"frames": (B, S, F)}, numpy arrays or tensors); ``params`` must
     already be on ``device``. ``logits_mode``: "all" (B, S, V), "last"
     (B, 1, V) or "none" (returns None). ``use_kernel`` routes
-    self-attention to the flash_attention kernel (see ``blocks``).
+    self-attention to the flash_attention kernel and the SSD mixer to the
+    ssd kernel (see ``blocks``).
     Returns the logits, in ``dtype`` (f32 with a softcap)."""
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all, last or none, got "

@@ -13,7 +13,7 @@ from repro_torch.core.pso import LookupTable
 from repro_torch.estimator.model import EstimatorConfig, init_estimator
 from repro_torch.core.privacy import layer_privacy_profile
 from repro_torch.estimator.ssm import SSMConfig, init_ssm
-from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
 from repro_torch.kernels.dcor import (dcor_kernel, pairwise_dists,
                                       pairwise_dists_ref)
 from repro_torch.kernels.featurize import featurize, featurize_ref
@@ -27,7 +27,7 @@ from repro_torch.kernels.qmm import plan as qmm_plan
 from repro_torch.kernels.quant import quantize, quantize_ref
 from repro_torch.kernels.segsum import (segment_reduce_batched,
                                         segment_reduce_ref)
-from repro_torch.kernels.ssd import ssd, ssd_ref
+from repro_torch.kernels.ssd import route, ssd, ssd_ref
 from repro_torch.configs import get_config
 from repro_torch.core import boundary
 from repro_torch.core.splitting import lm_split_infer
@@ -403,6 +403,82 @@ def test_ssd_kernel_large_dt_and_padding_finite(card):
     torch.testing.assert_close(st, st100, rtol=1e-4, atol=1e-4)
 
 
+def bf16_close(got, want):
+    """Each element within one bf16 ulp of its own magnitude (the f32 sum
+    runs in another order, so a rounding can flip), over a floor of 1e-5
+    of the largest magnitude for elements near 0. Shared with the CPU
+    tests of the ssd kernel and the SSD block."""
+    err = (got.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(1e-30))) - 7)
+    return bool((err <= ulp + 1e-5 * want.float().abs().max()).all())
+
+
+@pytest.mark.parametrize("B,S,L,nh,hd,G,N,dtype", [
+    (2, 512, 512, 4, 16, 2, 16, torch.float32),
+    (2, 512, 512, 4, 16, 2, 16, torch.bfloat16),
+    (1, 512, 256, 32, 64, 1, 128, torch.float32),
+    (1, 512, 256, 32, 64, 1, 128, torch.bfloat16),
+    (2, 160, 40, 6, 24, 3, 20, torch.bfloat16),
+    (1, 384, 192, 5, 80, 1, 72, torch.float32),
+    (3, 256, 256, 2, 8, 1, 8, torch.bfloat16)])
+def test_ssd_chunked_route_matches_plain(card, B, S, L, nh, hd, G, N, dtype):
+    """The chunk-parallel route (bf16, chunks above 256 steps, working sets
+    beyond a block, ragged tiles of t, d, N and heads) against the plain
+    version: the state within 1e-4 of its largest magnitude; f32 y within
+    1e-4 of its largest magnitude (sums of up to L * N terms in another
+    order cancel near 0), bf16 y within one bf16 ulp of each element. A
+    second call repeats bit for bit."""
+    rng = np.random.default_rng(S + L + nh + hd)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(card)
+
+    x, Bm, Cm = (t(B, S, nh, hd).to(dtype), t(B, S, G, N).to(dtype),
+                 t(B, S, G, N).to(dtype))
+    dt = torch.nn.functional.softplus(t(B, S, nh)) * 0.5
+    A = -torch.exp(t(nh) * 0.3)
+    assert route(dtype, nh // G, hd, N, L) == "chunked"
+    reset_launches()
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    assert ROUTES["ssd"] == {"fused": 0, "chunked": 1}
+    assert LAUNCHES["ssd"] == 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+    if dtype == torch.float32:
+        assert (y - yr).abs().max() <= 1e-4 * yr.abs().max()
+    else:
+        assert bf16_close(y, yr)
+    assert (st - sr).abs().max() <= 1e-4 * sr.abs().max()
+    y2, st2 = ssd(x, dt, A, Bm, Cm, chunk=L)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+def test_ssd_routes_follow_shape_and_dtype(card):
+    """The recurrent estimator's f32 shape takes the fused route; the same
+    inputs in bf16 take the chunked one, and agree with it."""
+    rng = np.random.default_rng(5)
+    x, Bm, Cm = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(card) for s in ((64, 192, 4, 8), (64, 192, 1, 8),
+                                     (64, 192, 1, 8)))
+    dt = torch.full((64, 192, 4), 0.3, device=card)
+    A = -torch.ones(4, device=card)
+    assert route(torch.float32, 4, 8, 8, 64) == "fused"
+    reset_launches()
+    ssd(x, dt, A, Bm, Cm, chunk=64)
+    yb, stb = ssd(x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
+                  Cm.to(torch.bfloat16), chunk=64)
+    torch.cuda.synchronize()
+    assert ROUTES["ssd"] == {"fused": 1, "chunked": 1}
+    assert LAUNCHES["ssd"] == 2
+    yr, sr = ssd_ref(x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
+                     Cm.to(torch.bfloat16), 64)
+    assert bf16_close(yb, yr)
+    assert (stb - sr).abs().max() <= 1e-4 * sr.abs().max()
+
+
 def test_cells_ssm_slice_on_card_matches_cpu(card):
     n, T, C = 64, 12, 4
     rng = np.random.default_rng(3)
@@ -436,16 +512,11 @@ def test_cells_ssm_slice_on_card_matches_cpu(card):
 
 
 def _attention_close(got, want):
-    """f32: within 1e-5 of max|o|. bf16: each element within one bf16 ulp
-    of its own magnitude (a rounding flipped by the other order of the f32
-    sums), over a floor of 1e-5 of max|o| for elements near 0."""
-    err = (got.float() - want.float()).abs()
-    top = want.float().abs().max()
+    """f32: within 1e-5 of max|o|. bf16: ``bf16_close``."""
     if want.dtype == torch.float32:
-        return bool(err.max() <= 1e-5 * top)
-    ulp = torch.exp2(torch.floor(torch.log2(
-        want.float().abs().clamp_min(1e-30))) - 7)
-    return bool((err <= ulp + 1e-5 * top).all())
+        err = (got - want).abs().max()
+        return bool(err <= 1e-5 * want.abs().max())
+    return bf16_close(got, want)
 
 
 @pytest.mark.parametrize("bh,s,dh,dtype,causal,window", [
@@ -533,3 +604,31 @@ def test_lm_slice_on_card_matches_cpu(card):
         assert err <= 0.05 * want.float().abs().max(), codec
     full = lm.forward(cfg, gpu, batch, logits_mode="last")
     assert torch.equal(full, lm_split_infer(cfg, gpu, batch, 1))
+
+
+def test_ssd_lm_slice_on_card_matches_cpu(card):
+    """mamba2-370m reduced, bf16 weights copied bit for bit: split
+    inference through each codec on the card (the chunked ssd route, one
+    call a layer) against the port on the CPU, and the XLA route on the
+    card against the kernel route."""
+    cfg = get_config("mamba2-370m").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                      dtype=torch.bfloat16)
+    gpu = tree_map(lambda t: t.to(card), cpu)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)}
+    for codec in (boundary.FP16, boundary.INT8, boundary.INT4):
+        reset_launches()
+        got = lm_split_infer(cfg, gpu, batch, 1, codec)
+        assert LAUNCHES["ssd"] == cfg.n_layers
+        assert ROUTES["ssd"]["chunked"] == cfg.n_layers
+        assert LAUNCHES["quantize"] == (codec.bits < 16)
+        assert LAUNCHES["flash_attention"] == 0
+        want = lm_split_infer(cfg, cpu, batch, 1, codec, device="cpu")
+        err = (got.cpu().float() - want.float()).abs().max()
+        assert err <= 0.05 * want.float().abs().max(), codec
+    full = lm.forward(cfg, gpu, batch, logits_mode="last")
+    assert torch.equal(full, lm_split_infer(cfg, gpu, batch, 1))
+    off = lm.forward(cfg, gpu, batch, logits_mode="last", use_kernel=False)
+    assert ((off.float() - full.float()).abs().max()
+            <= 0.05 * full.float().abs().max())

@@ -3,7 +3,8 @@ activation bit-equal to the reference's (bf16 rows straight into the
 quantize kernel's plain version), the head and the tail against the JAX
 package with the same weights, ``lm_split_infer`` through FP16, INT8 and
 INT4 against the reference's, head plus tail equal to the forward, and
-``lm_split_profile`` and the boundary bytes equal to the reference's.
+``lm_split_profile`` and the boundary bytes equal to the reference's, for
+the dense LMs and the SSD LM (mamba2-370m).
 
 Tolerances: f32 activations and logits within 1e-5 of their largest
 magnitude; bf16 split inference within 0.05 of the logit scale, the JAX
@@ -102,12 +103,15 @@ def test_head_codec_tail_match_reference(codec):
 
 @pytest.mark.parametrize("use_kernel", [True, False])
 @pytest.mark.parametrize("codec", CODECS)
-@pytest.mark.parametrize("name", ["granite-8b", "qwen2-72b"])
+@pytest.mark.parametrize("name", ["granite-8b", "qwen2-72b", "mamba2-370m"])
 def test_lm_split_infer_matches_reference(name, codec, use_kernel):
     """End to end in f32, against the reference's lm_split_infer (its
     default XLA attention) within 1e-5 of the logit scale. A code can
     differ only where the two heads' activations straddle a rounding
-    boundary of the codec, which none does here."""
+    boundary of the codec, which none does here but one: mamba2-370m's
+    heads agree to 5.7e-8, yet one INT8 code of its 2048 sits on a
+    boundary and moves by one step, which moves the logits by 8.0e-5 of
+    their scale; that case is held at 2e-4."""
     ref_cfg, cfg, rp, params, batch = _setup(name)
     want = np.asarray(ref_splitting.lm_split_infer(
         ref_cfg, rp, batch, 1, getattr(ref_boundary, codec),
@@ -117,11 +121,12 @@ def test_lm_split_infer_matches_reference(name, codec, use_kernel):
                          device="cpu")
     assert got.shape == want.shape == (2, 1, cfg.vocab)
     err = np.abs(got.numpy() - want).max() / np.abs(want).max()
-    assert err <= 1e-5, err
+    assert err <= (2e-4 if (name, codec) == ("mamba2-370m", "INT8")
+                   else 1e-5), err
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
-@pytest.mark.parametrize("name", ["granite-8b", "qwen2-72b"])
+@pytest.mark.parametrize("name", ["granite-8b", "qwen2-72b", "mamba2-370m"])
 def test_lm_split_infer_bf16_matches_reference(name, use_kernel):
     """As served: bf16 weights and compute, the FP16 codec (the integer
     codecs' bf16 path is held bit for bit above, on the same activation)."""
@@ -134,7 +139,7 @@ def test_lm_split_infer_bf16_matches_reference(name, use_kernel):
     assert err <= 0.05, err
 
 
-@pytest.mark.parametrize("name", ["granite-8b", "gemma3-27b"])
+@pytest.mark.parametrize("name", ["granite-8b", "gemma3-27b", "mamba2-370m"])
 def test_head_plus_tail_equals_forward(name):
     """In bf16 the FP16 codec is the identity, so split inference at every
     split point is the forward, bit for bit."""

@@ -1,9 +1,12 @@
 """Port parity for the ssd stage: the plain PyTorch chunked SSD against the
 JAX ``ssd`` (its Pallas kernel in interpret mode) and ``ssd_ref`` at the
-reference's test shapes in f32 (y within 1e-4, the state within 1e-3, as
-the reference's own kernel test); chunk-size invariance; the O(1) step
-scanned over a sequence equals the sequence pass; large steps stay
-finite; the wrapper refuses what the kernel does not take."""
+reference's test shapes, a chunk above 256 steps and the SSD LM's 32
+heads a group, in f32 (y within 1e-4, the state within 1e-3, as the
+reference's own kernel test) and in bf16 (y within one bf16 ulp of each
+element over a floor of 1e-5 of its largest magnitude, the state as in
+f32); chunk-size invariance; the O(1) step scanned over a sequence equals
+the sequence pass; large steps stay finite; the wrapper refuses what the
+kernels do not take."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,9 +16,13 @@ from repro.kernels.ssd import ssd as ref_ssd
 from repro.kernels.ssd import ssd_ref as ref_ssd_ref
 from repro.kernels.ssd import ssd_step as ref_ssd_step
 from repro_torch.kernels.ssd import ssd, ssd_mixer, ssd_ref, ssd_step
+from test_torch_kernels_cuda import bf16_close
 
+# (S, L, nh, hd, G, N): the reference's test shapes, a chunk above 256
+# steps, and the SSD LM's 32 heads in one group at small widths
 SHAPES = [(64, 16, 4, 16, 1, 8), (128, 32, 8, 32, 2, 16),
-          (96, 96, 2, 8, 1, 4)]
+          (96, 96, 2, 8, 1, 4), (512, 512, 2, 8, 1, 4),
+          (64, 32, 32, 4, 1, 8)]
 
 
 def _inputs(seed, B, S, nh, hd, G, N, dt_scale=0.5):
@@ -43,6 +50,27 @@ def test_ssd_matches_reference(S, L, nh, hd, G, N):
             assert got_s.shape == (2, G, nh // G, hd, N)
             np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
                                        rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                                       rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("S,L,nh,hd,G,N", SHAPES)
+def test_ssd_bf16_matches_reference(S, L, nh, hd, G, N):
+    """bf16 x, B and C (dt and A f32, as the LM gives them): y in bf16,
+    rounded once from the f32 sum, the state in f32."""
+    x, dt, A, Bm, Cm = _inputs(S + L + 1, 2, S, nh, hd, G, N)
+    jx = [jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(dt),
+          jnp.asarray(A), jnp.asarray(Bm).astype(jnp.bfloat16),
+          jnp.asarray(Cm).astype(jnp.bfloat16)]
+    tx = [torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(dt),
+          torch.from_numpy(A), torch.from_numpy(Bm).to(torch.bfloat16),
+          torch.from_numpy(Cm).to(torch.bfloat16)]
+    for want_y, want_s in (ref_ssd(*jx, chunk=L), ref_ssd_ref(*jx, L)):
+        want_y = np.asarray(want_y.astype(jnp.float32))
+        for got_y, got_s in (ssd(*tx, chunk=L), ssd_ref(*tx, L)):
+            assert got_y.dtype == torch.bfloat16
+            assert got_s.dtype == torch.float32
+            assert bf16_close(got_y, torch.from_numpy(want_y))
             np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
                                        rtol=1e-3, atol=1e-3)
 
@@ -103,13 +131,17 @@ def test_zero_dt_rows_leave_the_state():
     torch.testing.assert_close(s_pad, s, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("bad", ["bf16", "shape", "chunk", "groups",
+@pytest.mark.parametrize("bad", ["bf16", "f16", "shape", "chunk", "groups",
                                  "contiguous"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """bf16: x in bf16 beside f32 B and C (x, B and C share one type); f16
+    is neither f32 nor bf16."""
     x, dt, A, Bm, Cm = _t(_inputs(16, 1, 32, 4, 8, 1, 8))
     chunk = 16
     if bad == "bf16":
         x = x.to(torch.bfloat16)
+    elif bad == "f16":
+        x, Bm, Cm = (t.to(torch.float16) for t in (x, Bm, Cm))
     elif bad == "shape":
         dt = dt[:, :, :3].contiguous()
     elif bad == "chunk":
