@@ -3,7 +3,7 @@
 
 In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels (nine, the ssd kernel in two routes)
+  2. builds the port's CUDA kernels (nine, the ssd kernel in three routes)
      from the sources in this checkout, and prints the build's seconds
      (each source's in its log);
   3. holds each kernel of the fp32 and int8 paths against its plain
@@ -59,17 +59,19 @@ In order:
   9. the SSD LM's split serving at mamba2-370m's full width and depth (48
      layers, d 1024, d_inner 2048, 32 heads x 64, N 128, chunk 256, vocab
      50280; bf16 weights seeded on the card): the ssd kernel's chunked
-     route against its plain version at SSD_CHECKS (f32 and bf16, chunks
-     of 64, 128, 256 and the whole sequence, two groups) and on layer 0's
-     own inputs at the path's shape (4, 4096, 32, 64, 1, 128, L 256) bf16;
+     routes against the plain version at SSD_CHECKS (bf16 on the tensor
+     cores, f32 and a ragged bf16 case on the CUDA cores; chunks of 40 to
+     512, two groups) and on layer 0's own inputs at the path's shape (4,
+     4096, 32, 64, 1, 128, L 256) bf16, timed there beside the CUDA-core
+     kernels on the same inputs (bf16) and at the same shape (f32);
      ``lm_split_infer`` of 4 x 4096 tokens at split 24 through FP16, INT8
      and INT4 (cold, then three warm runs, 48 ssd calls a run, all on the
-     chunked route, one quantize launch an integer codec), and the same
+     tensor-core route, one quantize launch an integer codec), and the same
      checks as the dense LM's (head plus tail, the boundary codec, the
      2-layer cut on the card and the CPU); timings and an ``e2e_ssd_lm``
      line;
- 10. prints the ``{"kernels": [...]}`` line (ssd's row with both routes,
-     each at its path's shape) and, last, ``{"ok": true, "device":
+ 10. prints the ``{"kernels": [...]}`` line (ssd's row with its three
+     routes, each at its path's shape) and, last, ``{"ok": true, "device":
      {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
@@ -82,7 +84,7 @@ result.
                                        # times (no ok line)
     python3 chip_smoke.py --qmm        # the same for qmm
     python3 chip_smoke.py --dcor       # the same for pairwise_dists
-    python3 chip_smoke.py --ssd        # the same for ssd's chunked route
+    python3 chip_smoke.py --ssd        # the same for ssd's chunked routes
 """
 from __future__ import annotations
 
@@ -171,11 +173,16 @@ SSD_LM_ARCH, SSD_LM_SPLIT = "mamba2-370m", 24
 # the ssd kernel against its plain version, (B, S, L, nh, hd, G, N, dtype):
 # mamba2-370m's heads at chunks of 64, 128 and 256 in f32 and bf16, one
 # chunk of the whole sequence (the shape the XLA route takes where the
-# chunk does not divide S) and two groups; all take the chunked route
+# chunk does not divide S), two groups, and a bf16 shape that does not
+# tile into 16s; bf16 takes the tensor-core route where it tiles, f32 and
+# the ragged case the CUDA-core one (SSD_ROUTE)
 SSD_CHECKS = [(1, 1024, L, 32, 64, 1, 128, dt) for L in (64, 128, 256)
               for dt in ("float32", "bfloat16")] + [
     (1, 512, 512, 32, 64, 1, 128, "bfloat16"),
-    (1, 1024, 256, 32, 64, 2, 128, "bfloat16")]
+    (1, 1024, 256, 32, 64, 2, 128, "bfloat16"),
+    (2, 160, 40, 6, 24, 3, 20, "bfloat16")]
+SSD_ROUTE = {"float32": "chunked", "bfloat16": "chunked_wgmma",
+             "ragged": "chunked"}
 # y: f32 within 1e-4 of max|y| (sums of up to L * N terms in another order
 # cancel near 0: 6.6e-6 at most on an H100); bf16 each element within one
 # bf16 ulp of its own magnitude over a floor of 1e-5 of max|y|; the state
@@ -328,21 +335,52 @@ def shape_totals(per_shape: list) -> dict:
 
 
 def ssd_work(B: int, S: int, nh: int, hd: int, G: int, N: int,
-             L: int, el: int = 4) -> tuple[int, int]:
-    """(bytes, flops) of one SSD sequence pass: every input read once and
-    both outputs written once (x, B, C and y ``el`` bytes an element, dt,
-    A and the state f32); per (batch, group) and chunk the lower triangle
-    of C.B, the masked intra-chunk product (a difference, an exp and a
-    multiply a (t, s, head), then hd multiply-adds), dt * x, the cumsum,
-    the state term of y, the decay of dt * x a (t, head, d) and the state
-    update (L multiply-adds and the carried decay a (head, d, n))."""
+             L: int, el: int = 4) -> tuple[int, int, int]:
+    """(bytes, elementwise flops, product flops) of one SSD sequence pass:
+    every input read once and both outputs written once (x, B, C and y
+    ``el`` bytes an element, dt, A and the state f32). Products, per
+    (batch, group) and chunk: the lower triangle of C.B, the masked
+    intra-chunk product (hd multiply-adds a (t, s, head)), the state term
+    of y (N a (t, head, d)) and the chunk states (L a (head, d, n)).
+    Elementwise: a difference, an exp and a multiply a masked (t, s,
+    head), dt * x, dt * A and the cumsum, the state term's decay and the
+    sum of y's two terms, the decay of dt * x a (t, head, d), and the
+    carried decay of the state recurrence a (head, d, n). On bf16 inputs
+    the products go to the tensor cores; in f32 all of it is FP32."""
     hpg, nc, tri = nh // G, S // L, L * (L + 1) // 2
     nbytes = (el * (2 * B * S * nh * hd + 2 * B * S * G * N)
               + 4 * (B * S * nh + nh + B * G * hpg * hd * N))
-    per_chunk = (2 * N * tri + hpg * tri * (3 + 2 * hd) + L * hpg * hd
-                 + 2 * L * hpg + L * hpg * hd * (2 * N + 2)
-                 + hpg * L * hd + hpg * hd * N * (2 * L + 2))
-    return nbytes, B * G * nc * per_chunk
+    prod = (2 * N * tri + hpg * tri * 2 * hd + L * hpg * hd * 2 * N
+            + hpg * hd * N * 2 * L)
+    elem = (hpg * tri * 3 + L * hpg * hd + 2 * L * hpg + L * hpg * hd * 2
+            + hpg * L * hd + hpg * hd * N * 2)
+    return nbytes, B * G * nc * elem, B * G * nc * prod
+
+
+def ssd_design_floor(B: int, S: int, nh: int, hd: int, G: int, N: int,
+                     L: int) -> dict:
+    """The tensor-core route's own floor (ms) at this shape: its products
+    as it runs them (C.B on the 64 x 64 tiles at or below the diagonal,
+    padded N; three pieces for M' x on those tiles, for the chunk states
+    over 32-step slabs, and for the state term of every chunk after the
+    first; x padded to 64 columns) at the bf16 rate, and the chunk states'
+    round trip through device memory (S_c in f32, the entry states'
+    pieces in bf16, each written and read once) at the memory rate."""
+    from repro_torch.kernels.ssd import padded_n
+    hpg, nc, np_ = nh // G, S // L, padded_n(N)
+    n_tt = -(-L // 64)
+    tiles = n_tt * (n_tt + 1) // 2
+    cb = tiles * 64 * 64 * np_ * 2
+    intra = tiles * 3 * 64 * 64 * 64 * 2
+    state = 3 * (-(-L // 32) * 32) * np_ * 64 * 2
+    inter = 3 * (n_tt * 64) * np_ * 64 * 2
+    flops = B * G * (nc * (cb + hpg * (intra + state))
+                     + (nc - 1) * hpg * inter)
+    nbytes = 2 * B * nc * nh * hd * N * 4 + 2 * B * (nc - 1) * nh * (
+        3 * np_ * 64 * 2)
+    return {"products": flops / BF16_FLOPS * 1e3,
+            "workspace": nbytes / HBM_BYTES_PER_S * 1e3,
+            "products_gflop": flops / 1e9, "workspace_mb": nbytes / 1e6}
 
 
 def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
@@ -467,7 +505,7 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
 
     torch.cuda.reset_peak_memory_stats()
     res, first_s, launches = run()
-    check(ROUTES["ssd"] == {"fused": 1, "chunked": 0},
+    check(ROUTES["ssd"] == {"fused": 1, "chunked": 0, "chunked_wgmma": 0},
           f"the cells run's ssd call takes the fused route ({ROUTES})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     warm_s = []
@@ -606,8 +644,8 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     ssd_plain, ssd_plain_host = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, L),
                                         5)
     B, S, nh, hd = x.shape
-    nbytes, flops = ssd_work(B, S, nh, hd, Bm.shape[2], Bm.shape[3], L)
-    ssd_bound, ssd_by = bound(nbytes, flops)
+    nbytes, elem, prod = ssd_work(B, S, nh, hd, Bm.shape[2], Bm.shape[3], L)
+    ssd_bound, ssd_by = bound(nbytes, elem + prod)
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
@@ -1495,7 +1533,8 @@ def ssd_held(x, dt, A, Bm, Cm, L, what: str) -> dict:
 
 def ssd_checks(dev) -> list:
     """The ssd kernel against its plain version at every SSD_CHECKS case,
-    on seeded random inputs."""
+    on seeded random inputs, each through the route SSD_ROUTE names."""
+    from repro_torch.kernels import ROUTES, reset_launches
     g = torch.Generator(device=dev).manual_seed(SEED)
     checks = []
     for B, S, L, nh, hd, G, N, dt_name in SSD_CHECKS:
@@ -1509,19 +1548,53 @@ def ssd_checks(dev) -> list:
         dt = torch.nn.functional.softplus(t(B, S, nh)) * 0.5
         A = -torch.exp(t(nh) * 0.3)
         case = (B, S, L, nh, hd, G, N, dt_name)
-        checks.append(dict(ssd_held(x, dt, A, Bm, Cm, L, str(case)),
-                           case=list(case)))
+        ragged = dtype == torch.bfloat16 and (hd % 16 or N % 16 or L % 16)
+        want = SSD_ROUTE["ragged" if ragged else dt_name]
+        reset_launches()
+        row = ssd_held(x, dt, A, Bm, Cm, L, str(case))
+        check(ROUTES["ssd"][want] == 1, f"ssd at {case} took the {want} "
+              f"route ({ROUTES['ssd']})")
+        checks.append(dict(row, case=list(case), route=want))
         del x, Bm, Cm, dt
-    print(f"ssd (chunked route) vs plain: {checks}")
+    print(f"ssd (chunked routes) vs plain: {checks}")
     return checks
+
+
+def ssd_cuda_core(x, dt, A, Bm, Cm, L):
+    """The CUDA-core chunked kernels in bf16 (``repro_ssd_chunked``'s kind
+    1, which the wrapper now runs only for bf16 shapes that do not tile)
+    on inputs that the wrapper sends to the tensor cores: the design the
+    tensor-core route replaced, launched for comparison and counted
+    nowhere. Returns (y, state)."""
+    from repro_torch.kernels import _build
+    B, S, nh, hd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    state = torch.empty((B, G, nh // G, hd, N), **f32)
+    lcum = torch.empty((B, nh, S), **f32)
+    states = torch.empty((B, S // L, nh, hd, N), **f32)
+    cbT = torch.empty((B, S // L, G, L, L), **f32)
+    rc = _build.library().repro_ssd_chunked(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), state.data_ptr(), lcum.data_ptr(),
+        states.data_ptr(), cbT.data_ptr(), B, S, nh, hd, G, N, L, 1,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "ssd (CUDA cores, bf16)")
+    return y, state
 
 
 def ssd_layer0(cfg, params, tokens, dev, by_launch: bool = False) -> dict:
     """The ssd kernel on layer 0's own inputs (all LM_BATCH x LM_SEQ
     tokens, bf16) against its plain version, held to SSD_RTOL, and timed
-    there beside its plain version and its bound; with ``by_launch`` its
-    device time also split by device launch with torch.profiler."""
-    from repro_torch.kernels.ssd import route, ssd, ssd_ref
+    there beside its plain version, its bound and its design floor; the
+    CUDA-core kernels held and timed on the same inputs (bf16) and on
+    their f32 copy (the route the wrapper takes in f32), beside the plain
+    version and the bound there. With ``by_launch`` the tensor-core
+    route's device time is also split by device launch with
+    torch.profiler."""
+    from repro_torch.kernels.ssd import (DEVICE_LAUNCHES, route, ssd,
+                                         ssd_ref)
     from repro_torch.models import blocks, lm
     from repro_torch.models.template import tree_map
 
@@ -1533,10 +1606,28 @@ def ssd_layer0(cfg, params, tokens, dev, by_launch: bool = False) -> dict:
         L = min(cfg.ssm_chunk, LM_SEQ)
         B, S, nh, hd = xh.shape
         G, N = Bg.shape[2], Bg.shape[3]
-        real = ssd_held(xh, dt, A, Bg, Cg, L,
-                        f"layer 0's inputs {(B, S, nh, hd, G, N, L)} bf16")
+        shape = (B, S, nh, hd, G, N, L)
+        real = ssd_held(xh, dt, A, Bg, Cg, L, f"layer 0's inputs {shape} "
+                        "bf16")
         ms, host = cuda_ms(lambda: ssd(xh, dt, A, Bg, Cg, chunk=L), 20)
         pms, phost = cuda_ms(lambda: ssd_ref(xh, dt, A, Bg, Cg, L), 2)
+        # the CUDA-core kernels: bf16 on the same inputs, then f32
+        y_c, s_c = ssd_cuda_core(xh, dt, A, Bg, Cg, L)
+        torch.cuda.synchronize()
+        yr, sr = ssd_ref(xh, dt, A, Bg, Cg, L)
+        ok, core_err, _ = ulp_close(y_c, yr, SSD_RTOL)
+        check(ok and float((s_c - sr).abs().max() / sr.abs().max())
+              <= SSD_RTOL, "the CUDA-core kernels within their bound of "
+              f"plain on layer 0's inputs (y max |err| {core_err:.3g})")
+        del y_c, s_c, yr, sr
+        core_ms, _ = cuda_ms(lambda: ssd_cuda_core(xh, dt, A, Bg, Cg, L), 20)
+        x32, B32, C32 = xh.float(), Bg.float(), Cg.float()
+        f32 = ssd_held(x32, dt, A, B32, C32, L, f"layer 0's inputs {shape} "
+                       "in f32")
+        f32_ms, f32_host = cuda_ms(lambda: ssd(x32, dt, A, B32, C32,
+                                               chunk=L), 10)
+        f32_pms, f32_phost = cuda_ms(lambda: ssd_ref(x32, dt, A, B32, C32,
+                                                     L), 2)
         if by_launch:
             from torch.autograd import DeviceType
             from torch.profiler import ProfilerActivity, profile
@@ -1546,23 +1637,40 @@ def ssd_layer0(cfg, params, tokens, dev, by_launch: bool = False) -> dict:
                 torch.cuda.synchronize()
             split = {}
             for e in prof_run.key_averages():
-                name = re.search(r"chunk_\w+|state_passing", e.key)
+                name = re.search(r"chunk_\w+|state_passing\w*", e.key)
                 if e.device_type == DeviceType.CUDA and name:
                     split[name.group(0)] = e.self_device_time_total / 5e3
-    nbytes, flops = ssd_work(B, S, nh, hd, G, N, L, el=2)
-    b_ms, by = bound(nbytes, flops)
-    real.update({"route": route(xh.dtype, nh // G, hd, N, L),
-                 "device_launches_per_call": 5,
-                 "shape": [B, S, nh, hd, G, N, L], "dtype": "bfloat16",
+        del x32, B32, C32
+    which = route(xh.dtype, nh // G, hd, N, L)
+    nbytes, elem, prod = ssd_work(B, S, nh, hd, G, N, L, el=2)
+    b_ms, by = bound(nbytes, elem, bf16_ops=prod)
+    nbytes4, elem4, prod4 = ssd_work(B, S, nh, hd, G, N, L, el=4)
+    b4_ms, by4 = bound(nbytes4, elem4 + prod4)
+    floor = ssd_design_floor(B, S, nh, hd, G, N, L)
+    real.update({"route": which,
+                 "device_launches_per_call": DEVICE_LAUNCHES[which],
+                 "shape": list(shape), "dtype": "bfloat16",
                  "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-                 "bound_by": by, "library_ms": None,
+                 "bound_by": by, "design_floor_ms": floor,
+                 "library_ms": None,
                  "library": "none (no one call)", "host_ms": host,
-                 "plain_host_ms": phost})
+                 "plain_host_ms": phost,
+                 "cuda_core_bf16_ms": core_ms,
+                 "cuda_core_bf16_max_abs_err": core_err})
+    f32.update({"route": route(torch.float32, nh // G, hd, N, L),
+                "device_launches_per_call": DEVICE_LAUNCHES["chunked"],
+                "shape": list(shape), "dtype": "float32", "ms": f32_ms,
+                "plain_ms": f32_pms, "bound_ms": b4_ms, "bound_by": by4,
+                "library_ms": None, "library": "none (no one call)",
+                "host_ms": f32_host, "plain_host_ms": f32_phost})
+    real["f32"] = f32
     if by_launch:
         real["device_ms_by_kernel"] = split
-    print(f"ssd (chunked route) at the path's shape "
-          f"{tuple(real['shape'])} bf16: {ms:.4f} ms (bound {b_ms:.4f} "
-          f"ms, {by}), plain {pms:.3f} ms")
+    print(f"ssd ({which}) at the path's shape {shape} bf16: {ms:.4f} ms "
+          f"(bound {b_ms:.4f} ms, {by}; design floor: products "
+          f"{floor['products']:.4f} ms, workspace {floor['workspace']:.4f}"
+          f" ms), plain {pms:.3f} ms; CUDA-core kernels {core_ms:.4f} ms "
+          f"in bf16, {f32_ms:.4f} ms in f32 (bound {b4_ms:.4f} ms, {by4})")
     return real
 
 
@@ -1574,19 +1682,26 @@ def ssd_lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     numbers for the ssd row and the quantize kernel's boundary timing."""
     checks = ssd_checks(dev)
     res = serve_lm(dev, smi, argv, SSD_LM_ARCH, SSD_LM_SPLIT, "ssd",
-                   ssd_layer0, route="chunked")
+                   ssd_layer0, route=SSD_ROUTE["bfloat16"])
     print(json.dumps({"e2e_ssd_lm": dict(res["e2e"], ssd_checks=checks)}))
     real = res["e2e"]["layer0_ssd"]
-    chunked = {k: real[k] for k in (
+    src = "src/repro_torch/kernels/csrc/ssd_chunked.cu"
+    wgmma = {k: real[k] for k in (
         "route", "device_launches_per_call", "shape", "dtype", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-        "host_ms", "plain_host_ms", "max_abs_err", "state_rel")}
-    chunked.update({"source": "src/repro_torch/kernels/csrc/ssd_chunked.cu",
-                    "launches": res["launches"], "path": SSD_LM_ARCH,
-                    "max_abs_err_checks": max(c["max_abs_err"]
-                                              for c in checks)})
-    return chunked, {"launches_ssd_lm": res["quantize_launches"],
-                     "ssd_lm_boundary": res["boundary"]}
+        "plain_ms", "bound_ms", "bound_by", "design_floor_ms",
+        "library_ms", "library", "host_ms", "plain_host_ms", "max_abs_err",
+        "state_rel", "cuda_core_bf16_ms")}
+    wgmma.update({"source": src, "launches": res["launches"],
+                  "path": SSD_LM_ARCH, "max_abs_err_checks": max(
+                      c["max_abs_err"] for c in checks
+                      if c["route"] == "chunked_wgmma")})
+    core = dict(real["f32"], source=src, launches=0,
+                path="none timed (the 2-layer f32 cut of the SSD LM path)",
+                max_abs_err_checks=max(c["max_abs_err"] for c in checks
+                                       if c["route"] == "chunked"))
+    return {"chunked_wgmma": wgmma, "chunked": core}, {
+        "launches_ssd_lm": res["quantize_launches"],
+        "ssd_lm_boundary": res["boundary"]}
 
 
 def main(argv: list[str]) -> int:
@@ -2069,20 +2184,21 @@ def main(argv: list[str]) -> int:
 
     # 9. split serving of the SSD LM at mamba2-370m's full width and depth
     torch.cuda.empty_cache()
-    ssd_chunked, quant_ssd = ssd_lm_path(dev, smi, argv)
+    ssd_routes, quant_ssd = ssd_lm_path(dev, smi, argv)
     next(k for k in kernels if k["name"] == "quantize").update(quant_ssd)
+    main = ssd_routes["chunked_wgmma"]
     ssd_row = {
-        "name": "ssd", "route": "cuda", "source": ssd_chunked["source"],
+        "name": "ssd", "route": "cuda", "source": main["source"],
         "replaces": "src/repro/kernels/ssd/kernel.py:65",
-        "launches": ssd_chunked["launches"],
-        "max_abs_err": ssd_chunked["max_abs_err"],
-        **{k: ssd_chunked[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
-        "per": f"one call (5 device launches) at the SSD LM's shape "
-               f"{ssd_chunked['shape']} bf16, {ssd_chunked['launches']} a "
-               "split inference; routes: each route at its own path's "
-               "shape, with that path's calls a run",
-        "routes": {"chunked": ssd_chunked, "fused": ssd_fused}}
+        "launches": main["launches"], "max_abs_err": main["max_abs_err"],
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "design_floor_ms")},
+        "per": f"one call ({main['device_launches_per_call']} device "
+               f"launches) at the SSD LM's shape {main['shape']} bf16, "
+               f"{main['launches']} a split inference; routes: each route "
+               "at its own path's shape (the CUDA-core chunked route at "
+               "the SSD LM's shape in f32), with that path's calls a run",
+        "routes": {**ssd_routes, "fused": ssd_fused}}
     kernels.append(ssd_row)
     print(json.dumps(ssd_row))
 

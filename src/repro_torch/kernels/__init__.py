@@ -14,7 +14,10 @@ tensors, and the tests and ``chip_smoke.py`` hold the kernel to it.
   segsum     batched segment sum / max (the PRB scheduler's normalizers,
              the per-cell load)
   ssd        Mamba-2 chunked SSD scan (the recurrent estimator's and the
-             SSD LM's mixer), a fused and a chunk-parallel route
+             SSD LM's mixer): a fused route, and a chunk-parallel one on
+             the tensor cores (bf16) or the CUDA cores
+  pieces     the split of an f32 factor into three exact bf16 pieces
+             (the plain version of what the bf16 tensor-core kernels do)
   dcor       pairwise Euclidean distances (distance correlation, the
              split-computing privacy metric)
   flash_attention

@@ -66,8 +66,8 @@ _SIGNATURES = {
     #  stream)
     "repro_ssd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P],
-    # (x, dt, a, bm, cm, y, state, lcum, states, cbT, batch, seqlen, nh,
-    #  hd, groups, n, chunk, bf16, stream)
+    # (x, dt, a, bm, cm, y, state, lcum, states, work, batch, seqlen, nh,
+    #  hd, groups, n, chunk, kind, stream)
     "repro_ssd_chunked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _I, _P],
     # (x, work, out, tickets, n, d, chunk, splits, cluster, stream) and
@@ -89,7 +89,7 @@ LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
             "lstm_scan_q": 0, "segsum": 0, "ssd": 0, "pairwise_dists": 0,
             "flash_attention": 0}
 # calls of each route of a wrapper that chooses one, beside its LAUNCHES
-ROUTES = {"ssd": {"fused": 0, "chunked": 0}}
+ROUTES = {"ssd": {"fused": 0, "chunked": 0, "chunked_wgmma": 0}}
 
 _lock = threading.Lock()
 _lib = None

@@ -25,8 +25,9 @@
 // 0.54 GB of q, k, v and o (0.16 ms at 3.35 TB/s). This design runs Q.K^T
 // once and P.V three times, 1.1e12 FLOPs: its own floor is 1.11 ms.
 //
-// Exact P. An f32 p in (0, 1] is carried as three bf16 pieces, hi =
-// bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid), each difference
+// Exact P. An f32 p in (0, 1] is carried as three bf16 pieces
+// (sm90.cuh::split3, shared with ssd_chunked.cu), hi = bf16(p), mid =
+// bf16(p - hi), lo = bf16(p - hi - mid), each difference
 // exact in f32: p - hi has at most 16 significant bits and p - hi - mid at
 // most 8, so lo is that difference and hi + mid + lo = p bit for bit for
 // every p >= 2^-100 (scores within 69 of the row's max; below, the residue
@@ -110,113 +111,6 @@ __device__ __forceinline__ float exp_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
   return y;
-}
-
-// keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_F8(i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
-#define WG_F64 WG_F32(0), WG_F32(32)
-#define WG_F128 WG_F64, WG_F32(64), WG_F32(96)
-
-// D (64 x N, f32) = [D +] A B: A (64 x 16) and B (N x 16) K-major bf16
-// tiles in shared memory; `accumulate` 0 overwrites D
-template <int N>
-struct SS;
-template <>
-struct SS<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : WG_F32(0)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-template <>
-struct SS<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : WG_F64
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-// D (64 x N, f32) += A B: A (64 x 16 bf16) in registers, in the
-// accumulator layout's fragment order; B (16 x N) an MN-major (N
-// contiguous) bf16 tile in shared memory
-template <int N>
-struct RS;
-template <>
-struct RS<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : WG_F32(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <>
-struct RS<128> {
-  static __device__ __forceinline__ void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : WG_F64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <>
-struct RS<256> {
-  static __device__ __forceinline__ void run(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_R128
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : WG_F128
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// p0, p1 (f32) -> three bf16x2 pieces whose sums are p0 and p1 exactly
-// (for |p| >= 2^-100): hi = bf16(p), mid = bf16(p - hi), lo = p - hi - mid
-__device__ __forceinline__ void split3(float p0, float p1, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = p0 - hf.x, r1 = p1 - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  hi = bits(h);
-  mid = bits(m);
-  lo = bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
 // P of a tile as three bf16 pieces, in the A-fragment order of each k16

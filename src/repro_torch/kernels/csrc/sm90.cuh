@@ -1,12 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, qmm.cu, dcor.cu): mbarriers, TMA tile loads,
-// 128-byte-swizzle wgmma descriptors and the wgmma group fences, the
-// tickets of split reductions, and cuTensorMapEncodeTiled found through
-// the CUDA runtime. Everything sits in an anonymous namespace, so each
-// source that includes this header gets its own copy.
+// (flash_attention.cu, ssd_chunked.cu, qmm.cu, dcor.cu): mbarriers, named
+// barriers, TMA tile and bulk loads, 128-byte-swizzle wgmma descriptors,
+// the bf16 wgmma products with f32 accumulators and their group fences,
+// the split of an f32 value into three exact bf16 pieces, the tickets of
+// split reductions, and cuTensorMapEncodeTiled found through the CUDA
+// runtime. Everything
+// sits in an anonymous namespace, so each source that includes this header
+// gets its own copy.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +59,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// the same for a whole warp, every lane spinning on the warp's vote: the
+// loop's branch is warp-uniform, so a wgmma group left in flight across
+// the wait is not serialized by the compiler (it fences wgmma around a
+// branch it cannot prove uniform)
+__device__ __forceinline__ void mbar_wait_warp(uint32_t bar, uint32_t parity) {
+  uint32_t spins = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (__all_sync(0xffffffffu, done)) return;
+    if (++spins == (1u << 28)) __trap();
+  }
+}
+
 // a box at (c0, c1) of a 2-D tensor map into shared memory, completing on
 // the barrier
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -76,6 +100,22 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` into shared `dst`, both
+// 16-byte aligned, completing on the barrier (a 1-D bulk copy, no map)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
@@ -127,6 +167,116 @@ __device__ __forceinline__ int ticket_add(int* p) {
          "%107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
          "%116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
          "%125, %126, %127"
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_F8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
+#define WG_F64 WG_F32(0), WG_F32(32)
+#define WG_F128 WG_F64, WG_F32(64), WG_F32(96)
+
+// D (64 x N, f32) = [D +] A B: A (64 x 16) and B (N x 16) K-major bf16
+// tiles in shared memory; `accumulate` 0 overwrites D
+template <int N>
+struct SS;
+template <>
+struct SS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_F32(0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct SS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_F64
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+// D (64 x N, f32) += A B: A (64 x 16 bf16) in registers, in the
+// accumulator layout's fragment order; B (16 x N) an MN-major (N
+// contiguous) bf16 tile in shared memory
+template <int N>
+struct RS;
+template <>
+struct RS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_F32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <>
+struct RS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_F64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <>
+struct RS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_R128
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : WG_F128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// p0, p1 (f32) -> three bf16x2 pieces whose sums are p0 and p1 exactly
+// (for |p| >= 2^-100): hi = bf16(p), mid = bf16(p - hi), lo = p - hi - mid.
+// Each difference is exact in f32: p - hi has at most 16 significant bits
+// and p - hi - mid at most 8, so lo is that difference; below 2^-100 the
+// residue can fall under bf16's smallest normal and be rounded
+__device__ __forceinline__ void split3(float p0, float p1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = p0 - hf.x, r1 = p1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,

@@ -11,10 +11,11 @@ casts v to f32 first): only the output is rounded to q's dtype.
 ``csrc/flash_attention.cu``, chosen by q's dtype: bf16 runs the Hopper
 kernel (both products on ``wgmma``, K and V tiles through a TMA ring, P
 carried as three bf16 pieces whose sum is P exactly, so P.V stays the
-reference's f32 product), f32 the FMA kernel. ``split_bf16x3`` is the plain
-version of that split, for the tests. ``attention_ref`` is the kernels'
-plain PyTorch version (the reference's ``ref.py``), which the wrapper runs
-for tensors on the CPU and the tests hold the kernels to. ``mha`` is the
+reference's f32 product), f32 the FMA kernel. ``split_bf16x3`` (from
+``kernels.pieces``) is the plain version of that split, for the tests.
+``attention_ref`` is the kernels' plain PyTorch version (the reference's
+``ref.py``), which the wrapper runs for tensors on the CPU and the tests
+hold the kernels to. ``mha`` is the
 GQA entry point of the LM blocks, in the reference's ``ops.py`` layout, and
 differentiable: the forward runs the wrapper, the backward recomputes
 through ``attention_ref`` (there is no backward kernel in the reference
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.pieces import split_bf16x3  # noqa: F401
 
 F32 = torch.float32
 NEG_INF = -1e30  # the reference's mask value
@@ -51,20 +53,6 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.to(F32)).to(q.dtype)
-
-
-def split_bf16x3(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]:
-    """The bf16 kernel's split of an f32 P into three bf16 pieces, hi =
-    bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid), each rounded to
-    nearest even, the differences exact in f32: hi + mid + lo == p for
-    every |p| >= 2^-100. The plain version of the kernel's step, for the
-    tests; ``attention_ref`` keeps P in f32."""
-    p = p.to(F32)
-    hi = p.to(torch.bfloat16)
-    r = p - hi.to(F32)
-    mid = r.to(torch.bfloat16)
-    return hi, mid, (r - mid.to(F32)).to(torch.bfloat16)
 
 
 def _check(q, k, v, window):

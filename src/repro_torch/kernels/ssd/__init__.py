@@ -11,7 +11,9 @@ Output: y (B, S, nh, hd) and the final state (B, G, nh // G, hd, N).
 ``ssd`` is the wrapper of the CUDA kernels, which takes x, Bm and Cm in
 f32 or bf16 and any chunk: by ``route``, ``csrc/ssd.cu`` (fused: f32
 chunks whose working set fits one block, the recurrent estimator's) or
-``csrc/ssd_chunked.cu`` (chunk-parallel: every other shape, the SSD LM's).
+``csrc/ssd_chunked.cu``, chunk-parallel: on the tensor cores for bf16
+shapes that tile into 16s (the SSD LM's), on the CUDA cores for every
+other shape.
 ``ssd_ref`` is their plain PyTorch version (the reference's ``ref.py``),
 which the wrapper runs for tensors on the CPU and the tests hold the
 kernels to.
@@ -31,6 +33,9 @@ F32 = torch.float32
 DTYPES = (F32, torch.bfloat16)
 FUSED_MAX_CHUNK = 256  # longest chunk the fused route takes
 SMEM_BYTES = 232448  # shared memory a block may have on the H100
+WGMMA_MAX_HD, WGMMA_MAX_N = 64, 256  # widest x and B/C rows of the
+# tensor-core route (one 64-column tile of x; N padded to 64, 128 or 256)
+DEVICE_LAUNCHES = {"fused": 1, "chunked": 5, "chunked_wgmma": 4}  # a call
 
 
 def ssd_step(x_t, dt_t, A, B_t, C_t, state):
@@ -98,15 +103,55 @@ def smem_bytes(hpg: int, hd: int, n: int, chunk: int) -> int:
                 + chunk * (chunk + 1) // 2 + hpg * hd * n)
 
 
-def route(dtype: torch.dtype, hpg: int, hd: int, n: int, chunk: int) -> str:
-    """The kernel a card runs for these inputs: "fused" (``csrc/ssd.cu``,
-    one block a (batch, group) row with the carried state in shared memory)
-    for f32 chunks of at most ``FUSED_MAX_CHUNK`` steps whose working set
-    fits a block, "chunked" (``csrc/ssd_chunked.cu``, chunk states, state
-    passing, C.B and chunk scan in five launches) for everything else."""
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def padded_n(n: int) -> int:
+    """N as the tensor-core kernels tile it: whole 128-byte rows of 64, 128
+    or 256 bf16 values (``csrc/ssd_chunked.cu::tc::padded_n``)."""
+    return 64 if n <= 64 else 128 if n <= 128 else 256
+
+
+def wgmma_fits(n: int, chunk: int) -> bool:
+    """Whether the tensor-core kernels' blocks fit a block's shared memory,
+    as ``csrc/ssd_chunked.cu`` plans them: chunk_scan_tc's (``scan_plan``)
+    with one consumer warpgroup (it takes two where they fit), and
+    chunk_state_tc's (``SlabPlan``)."""
+    np_, n_tt = padded_n(n), -(-chunk // 64)
+    scal = (64 + 2 * 64 * n_tt) * 4
+    cons = 3 * np_ * 128 + 2 * 64 * 128 + _round_up(2 * scal, 1024)
+    scan = (1024 + np_ * 128 + n_tt * max(16384, np_ * 128) + cons
+            + 8 * (1 + 10))
+    slab_b = np_ // 64 * 32 * 128
+    state = (1024 + 4 * (32 * 128 + slab_b)
+             + _round_up(-(-chunk // 32) * 32 * 4, 16) + 8 * 4)
+    return max(scan, state) <= SMEM_BYTES
+
+
+def route(dtype: torch.dtype, hpg: int, hd: int, n: int, chunk: int,
+          aligned: bool = True) -> str:
+    """The kernel a card runs for these inputs:
+
+    - "fused" (``csrc/ssd.cu``, one block a (batch, group) row with the
+      carried state in shared memory) for f32 chunks of at most
+      ``FUSED_MAX_CHUNK`` steps whose working set fits a block;
+    - "chunked_wgmma" (``csrc/ssd_chunked.cu``, namespace ``tc``: chunk
+      states, state passing and an attention-shaped chunk scan on bf16
+      ``wgmma``, four launches) for bf16 inputs whose hd, N and chunk are
+      multiples of 16, hd at most ``WGMMA_MAX_HD`` and N at most
+      ``WGMMA_MAX_N``, whose blocks fit shared memory and whose x, Bm and
+      Cm start on 16 bytes (``aligned``: TMA's rule);
+    - "chunked" (the same file's CUDA-core kernels, five launches) for
+      everything else."""
     if (dtype == F32 and chunk <= FUSED_MAX_CHUNK
             and smem_bytes(hpg, hd, n, chunk) <= SMEM_BYTES):
         return "fused"
+    if (dtype == torch.bfloat16 and aligned and hd % 16 == 0
+            and n % 16 == 0 and chunk % 16 == 0 and hd <= WGMMA_MAX_HD
+            and n <= WGMMA_MAX_N
+            and wgmma_fits(n, chunk)):
+        return "chunked_wgmma"
     return "chunked"
 
 
@@ -145,8 +190,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
 
     Tensors on the CPU run ``ssd_ref``; on a card the kernel ``route``
     picks runs, or this raises. dt and A are taken in f32 (a bf16 one is
-    cast, exactly). The chunked route allocates f32 workspaces of
-    B * S * nh * (1 + hd * N / L) + B * S * G * L values."""
+    cast, exactly). The chunked routes allocate f32 workspaces of
+    B * S * nh * (1 + hd * N / L) values, and C.B's B * S * G * L f32
+    values (CUDA cores) or dt transposed (B * S * nh f32) and the entry
+    states' 3 * 64 * padded_n(N) bf16 pieces a (batch, chunk, head)
+    (tensor cores)."""
     _check(x, dt, A, Bm, Cm)
     B, S, nh, hd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -165,7 +213,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if B == 0:
         return y, state
     lib = _build.library()
-    which = route(x.dtype, hpg, hd, N, L)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, Bm, Cm))
+    which = route(x.dtype, hpg, hd, N, L, aligned)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if which == "fused":
@@ -174,18 +223,29 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, nh, hd,
                 G, N, L, stream)
         else:
-            # f32 workspaces: the cumulative decays, each chunk's state
-            # and each chunk's C.B (2, 67 and 17 MB at the SSD LM's call)
-            lcum = torch.empty((B, nh, S), dtype=F32, device=x.device)
+            # f32 workspaces: the cumulative decays (and, for the tensor
+            # cores, dt transposed beside them) and each chunk's state (2
+            # and 67 MB at the SSD LM's call); then each chunk's C.B in f32
+            # (CUDA cores) or each chunk's entry state as three bf16 pieces
+            # (tensor cores: 101 MB there)
+            tc = which == "chunked_wgmma"
+            lcum = torch.empty((1 + tc, B, nh, S), dtype=F32,
+                               device=x.device)
             states = torch.empty((B, S // L, nh, hd, N), dtype=F32,
                                  device=x.device)
-            cbT = torch.empty((B, S // L, G, L, L), dtype=F32,
-                              device=x.device)
+            if tc:  # repro_ssd_chunked's kind 2
+                kind = 2
+                work = torch.empty((B, S // L, nh, 3 * 64 * padded_n(N)),
+                                   dtype=torch.bfloat16, device=x.device)
+            else:  # kind 0 (f32) or 1 (bf16) on the CUDA cores
+                kind = int(x.dtype == torch.bfloat16)
+                work = torch.empty((B, S // L, G, L, L), dtype=F32,
+                                   device=x.device)
             rc = lib.repro_ssd_chunked(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-                lcum.data_ptr(), states.data_ptr(), cbT.data_ptr(), B, S, nh,
-                hd, G, N, L, int(x.dtype == torch.bfloat16), stream)
+                lcum.data_ptr(), states.data_ptr(), work.data_ptr(), B, S,
+                nh, hd, G, N, L, kind, stream)
     _build.check_launch(rc, f"ssd ({which})")
     _build.LAUNCHES["ssd"] += 1
     _build.ROUTES["ssd"][which] += 1

@@ -149,15 +149,18 @@ def _split_inputs(family: str, n: int = 200_000) -> np.ndarray:
     rng = np.random.default_rng(19)
     if family == "log-uniform":  # p over [2^-100, 1]
         p = np.exp2(rng.uniform(-100.0, 0.0, n))
+    elif family == "signed":  # the ssd kernel's M', B' and states
+        p = rng.normal(size=n) * np.exp2(rng.uniform(-90.0, 20.0, n))
     else:  # the softmax's own values: exp(-x), x up to 69
         p = np.exp(-rng.uniform(0.0, 69.0, n))
     return np.concatenate([p, [1.0, 2.0 ** -100]]).astype(np.float32)
 
 
-@pytest.mark.parametrize("family", ["log-uniform", "exp"])
+@pytest.mark.parametrize("family", ["log-uniform", "exp", "signed"])
 def test_split_bf16x3_sums_to_p_exactly(family):
-    """The bf16 kernel carries P as three bf16 pieces: their sum is P bit
-    for bit wherever P >= 2^-100 (scores within 69 of the row's max)."""
+    """The bf16 kernels carry an f32 factor as three bf16 pieces: their sum
+    is it bit for bit wherever |p| >= 2^-100 (P's scores within 69 of the
+    row's max; the ssd kernel's signed M', B' and states)."""
     p = torch.from_numpy(_split_inputs(family))
     pieces = split_bf16x3(p)
     assert all(t.dtype == torch.bfloat16 for t in pieces)
@@ -174,7 +177,7 @@ def test_split_bf16x3_loses_nothing_of_weight_below_2_pow_100():
     assert float((total - p.double()).abs().max()) < 1e-40
 
 
-@pytest.mark.parametrize("family", ["log-uniform", "exp"])
+@pytest.mark.parametrize("family", ["log-uniform", "exp", "signed"])
 def test_split_bf16x3_products_sum_to_p_v(family):
     """Each piece times a bf16 v is exact in f32 (8 x 8 significant
     bits), so the three f32 products summed in f32 give p v up to the two

@@ -423,12 +423,14 @@ def bf16_close(got, want):
     (1, 384, 192, 5, 80, 1, 72, torch.float32),
     (3, 256, 256, 2, 8, 1, 8, torch.bfloat16)])
 def test_ssd_chunked_route_matches_plain(card, B, S, L, nh, hd, G, N, dtype):
-    """The chunk-parallel route (bf16, chunks above 256 steps, working sets
+    """The chunk-parallel routes (bf16, chunks above 256 steps, working sets
     beyond a block, ragged tiles of t, d, N and heads) against the plain
     version: the state within 1e-4 of its largest magnitude; f32 y within
     1e-4 of its largest magnitude (sums of up to L * N terms in another
     order cancel near 0), bf16 y within one bf16 ulp of each element. A
-    second call repeats bit for bit."""
+    second call repeats bit for bit. bf16 shapes whose hd, N and chunk
+    are multiples of 16 take the tensor cores; f32 and the ragged bf16
+    shapes the CUDA cores."""
     rng = np.random.default_rng(S + L + nh + hd)
 
     def t(*shape):
@@ -439,11 +441,14 @@ def test_ssd_chunked_route_matches_plain(card, B, S, L, nh, hd, G, N, dtype):
                  t(B, S, G, N).to(dtype))
     dt = torch.nn.functional.softplus(t(B, S, nh)) * 0.5
     A = -torch.exp(t(nh) * 0.3)
-    assert route(dtype, nh // G, hd, N, L) == "chunked"
+    tiles = dtype == torch.bfloat16 and not (hd % 16 or N % 16 or L % 16)
+    want = "chunked_wgmma" if tiles else "chunked"
+    assert route(dtype, nh // G, hd, N, L) == want
     reset_launches()
     y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
     torch.cuda.synchronize()
-    assert ROUTES["ssd"] == {"fused": 0, "chunked": 1}
+    assert ROUTES["ssd"] == {"fused": 0, "chunked": int(not tiles),
+                             "chunked_wgmma": int(tiles)}
     assert LAUNCHES["ssd"] == 1
     assert y.dtype == dtype and st.dtype == torch.float32
     yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
@@ -451,6 +456,41 @@ def test_ssd_chunked_route_matches_plain(card, B, S, L, nh, hd, G, N, dtype):
         assert (y - yr).abs().max() <= 1e-4 * yr.abs().max()
     else:
         assert bf16_close(y, yr)
+    assert (st - sr).abs().max() <= 1e-4 * sr.abs().max()
+    y2, st2 = ssd(x, dt, A, Bm, Cm, chunk=L)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+@pytest.mark.parametrize("B,S,L,nh,hd,G,N,dt_scale", [
+    (4, 4096, 256, 32, 64, 1, 128, 0.5),  # the SSD LM's call (mamba2-370m)
+    (2, 64, 16, 4, 32, 1, 16, 0.5),       # its reduced() configuration
+    (2, 512, 64, 8, 32, 2, 16, 40.0)])    # decays far below 2^-100
+def test_ssd_wgmma_route_matches_plain(card, B, S, L, nh, hd, G, N,
+                                       dt_scale):
+    """The tensor-core route at the SSD LM's shape, at its reduced
+    configuration's and with steps of ~40, whose decays fall below 2^-100
+    where the pieces stop being exact: y finite and within one bf16 ulp of
+    each element of the plain version, the state within 1e-4 of its
+    largest magnitude, a second call bit for bit."""
+    rng = np.random.default_rng(S + L + nh + hd + int(dt_scale))
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(card)
+
+    bf16 = torch.bfloat16
+    x, Bm, Cm = (t(B, S, nh, hd).to(bf16), t(B, S, G, N).to(bf16),
+                 t(B, S, G, N).to(bf16))
+    dt = torch.nn.functional.softplus(t(B, S, nh)) * dt_scale
+    A = -torch.exp(t(nh) * 0.3)
+    assert route(bf16, nh // G, hd, N, L) == "chunked_wgmma"
+    reset_launches()
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    assert ROUTES["ssd"] == {"fused": 0, "chunked": 0, "chunked_wgmma": 1}
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+    assert bf16_close(y, yr)
     assert (st - sr).abs().max() <= 1e-4 * sr.abs().max()
     y2, st2 = ssd(x, dt, A, Bm, Cm, chunk=L)
     assert torch.equal(y2, y) and torch.equal(st2, st)
@@ -471,7 +511,7 @@ def test_ssd_routes_follow_shape_and_dtype(card):
     yb, stb = ssd(x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
                   Cm.to(torch.bfloat16), chunk=64)
     torch.cuda.synchronize()
-    assert ROUTES["ssd"] == {"fused": 1, "chunked": 1}
+    assert ROUTES["ssd"] == {"fused": 1, "chunked": 1, "chunked_wgmma": 0}
     assert LAUNCHES["ssd"] == 2
     yr, sr = ssd_ref(x.to(torch.bfloat16), dt, A, Bm.to(torch.bfloat16),
                      Cm.to(torch.bfloat16), 64)
@@ -608,8 +648,8 @@ def test_lm_slice_on_card_matches_cpu(card):
 
 def test_ssd_lm_slice_on_card_matches_cpu(card):
     """mamba2-370m reduced, bf16 weights copied bit for bit: split
-    inference through each codec on the card (the chunked ssd route, one
-    call a layer) against the port on the CPU, and the XLA route on the
+    inference through each codec on the card (the tensor-core ssd route,
+    one call a layer) against the port on the CPU, and the XLA route on the
     card against the kernel route."""
     cfg = get_config("mamba2-370m").reduced()
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
@@ -621,7 +661,7 @@ def test_ssd_lm_slice_on_card_matches_cpu(card):
         reset_launches()
         got = lm_split_infer(cfg, gpu, batch, 1, codec)
         assert LAUNCHES["ssd"] == cfg.n_layers
-        assert ROUTES["ssd"]["chunked"] == cfg.n_layers
+        assert ROUTES["ssd"]["chunked_wgmma"] == cfg.n_layers
         assert LAUNCHES["quantize"] == (codec.bits < 16)
         assert LAUNCHES["flash_attention"] == 0
         want = lm_split_infer(cfg, cpu, batch, 1, codec, device="cpu")

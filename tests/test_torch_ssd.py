@@ -15,7 +15,9 @@ import torch
 from repro.kernels.ssd import ssd as ref_ssd
 from repro.kernels.ssd import ssd_ref as ref_ssd_ref
 from repro.kernels.ssd import ssd_step as ref_ssd_step
-from repro_torch.kernels.ssd import ssd, ssd_mixer, ssd_ref, ssd_step
+from repro_torch.kernels.pieces import split_bf16x3
+from repro_torch.kernels.ssd import (route, ssd, ssd_mixer, ssd_ref,
+                                     ssd_step)
 from test_torch_kernels_cuda import bf16_close
 
 # (S, L, nh, hd, G, N): the reference's test shapes, a chunk above 256
@@ -73,6 +75,95 @@ def test_ssd_bf16_matches_reference(S, L, nh, hd, G, N):
             assert bf16_close(got_y, torch.from_numpy(want_y))
             np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
                                        rtol=1e-3, atol=1e-3)
+
+
+def _pieces_product(eq, factor, operand):
+    """einsum(eq) of an f32 factor and an exact bf16 operand as the tensor
+    cores take it: the factor as its three bf16 pieces, each product with
+    f32 sums, the smallest piece first, added in f32."""
+    hi, mid, lo = split_bf16x3(factor)
+    out = torch.einsum(eq, lo.float(), operand)
+    out = out + torch.einsum(eq, mid.float(), operand)
+    return out + torch.einsum(eq, hi.float(), operand)
+
+
+def ssd_wgmma_plain(x, dt, A, Bm, Cm, L):
+    """The arithmetic of ``csrc/ssd_chunked.cu``'s tensor-core route in
+    plain torch: C.B of exact bf16 values with f32 sums; dt folded into
+    M'[t, s] = exp(lcum[t] - lcum[s]) C.B[t, s] dt[s] (masked before the
+    exp) and into B'[t, n] = B[t, n] dt[t] exp(lcum[L-1] - lcum[t]); each
+    f32 factor (M', B', the entry states) split by ``split_bf16x3`` into
+    pieces whose products with x or C are summed in f32; y = intra +
+    exp(lcum[t]) C s^T rounded once."""
+    B, S, nh, hd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg, nc = nh // G, S // L
+    xc = x.float().reshape(B, nc, L, G, hpg, hd)
+    dtc = dt.float().reshape(B, nc, L, G, hpg)
+    Bc = Bm.float().reshape(B, nc, L, G, N)
+    Cc = Cm.float().reshape(B, nc, L, G, N)
+    lcum = torch.cumsum(dtc * A.float().reshape(G, hpg), dim=2)
+    CB = torch.einsum("bctgn,bcsgn->bcgts", Cc, Bc)
+    lg = lcum.permute(0, 1, 3, 4, 2)  # (B, nc, G, hpg, L)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    arg = torch.where(tri, lg[..., :, None] - lg[..., None, :], -torch.inf)
+    M = (torch.exp(arg) * CB[:, :, :, None]
+         * dtc.permute(0, 1, 3, 4, 2)[..., None, :])  # (.., t, s)
+    y_intra = _pieces_product("bcghts,bcsghd->bctghd", M, xc)
+    w = dtc * torch.exp(lcum[:, :, -1:] - lcum)  # (B, nc, L, G, hpg)
+    S_c = _pieces_product("bctghn,bctghd->bcghdn",
+                          Bc[:, :, :, :, None] * w[..., None], xc)
+    cd = torch.exp(lcum[:, :, -1])  # (B, nc, G, hpg)
+    states = [torch.zeros((B, G, hpg, hd, N))]
+    for c in range(nc):
+        states.append(states[-1] * cd[:, c][..., None, None] + S_c[:, c])
+    s_prev = torch.stack(states[:-1], dim=1)  # (B, nc, G, hpg, hd, N)
+    y_inter = (_pieces_product("bcghdn,bctgn->bctghd", s_prev, Cc)
+               * torch.exp(lcum)[..., None])
+    y = (y_intra + y_inter).reshape(B, S, nh, hd)
+    return y.to(x.dtype), states[-1]
+
+
+# (S, L, nh, hd, G, N, dt_scale): the reduced SSD LM's widths, two groups
+# over chunks of 64, a chunk of 128 at the LM's head width, and steps of
+# ~40 whose decays fall far below 2^-100, where the pieces stop being exact
+WGMMA_SHAPES = [(64, 16, 4, 32, 1, 16, 0.5), (256, 64, 4, 16, 2, 32, 0.5),
+                (256, 128, 8, 64, 1, 16, 0.5),
+                (128, 64, 4, 32, 1, 16, 40.0)]
+
+
+@pytest.mark.parametrize("S,L,nh,hd,G,N,dt_scale", WGMMA_SHAPES)
+def test_wgmma_arithmetic_matches_plain(S, L, nh, hd, G, N, dt_scale):
+    """The tensor-core formulation, in bf16, against ``ssd_ref``: y within
+    one bf16 ulp of each element (over a floor of 1e-5 of max|y|), the
+    state within 1e-4 of its largest magnitude, everything finite. These
+    shapes are the ones the wrapper sends to the tensor cores."""
+    x, dt, A, Bm, Cm = _inputs(S + L + nh, 2, S, nh, hd, G, N, dt_scale)
+    tx = [torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(dt),
+          torch.from_numpy(A), torch.from_numpy(Bm).to(torch.bfloat16),
+          torch.from_numpy(Cm).to(torch.bfloat16)]
+    assert route(torch.bfloat16, nh // G, hd, N, L) == "chunked_wgmma"
+    y, st = ssd_wgmma_plain(*tx, L)
+    yr, sr = ssd_ref(*tx, L)
+    assert y.dtype == torch.bfloat16
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    assert bf16_close(y, yr)
+    assert (st - sr).abs().max() <= 1e-4 * sr.abs().max()
+
+
+@pytest.mark.parametrize("dtype,hd,N,L,aligned,want", [
+    (torch.bfloat16, 64, 128, 256, True, "chunked_wgmma"),  # mamba2-370m
+    (torch.bfloat16, 32, 16, 16, True, "chunked_wgmma"),    # its reduced()
+    (torch.bfloat16, 64, 128, 512, True, "chunked_wgmma"),
+    (torch.bfloat16, 24, 20, 40, True, "chunked"),  # not in 16s
+    (torch.bfloat16, 8, 8, 256, True, "chunked"),
+    (torch.bfloat16, 80, 64, 64, True, "chunked"),  # hd above 64
+    (torch.bfloat16, 64, 128, 1024, True, "chunked"),  # C.B past smem
+    (torch.bfloat16, 64, 128, 256, False, "chunked"),  # TMA's alignment
+    (torch.float32, 64, 128, 256, True, "chunked"),
+    (torch.float32, 8, 8, 64, True, "fused")])
+def test_route_follows_dtype_and_shape(dtype, hd, N, L, aligned, want):
+    assert route(dtype, 32 if hd == 64 else 4, hd, N, L, aligned) == want
 
 
 def test_chunk_size_invariance():
