@@ -71,8 +71,10 @@ In order:
      2-layer cut on the card and the CPU); timings and an ``e2e_ssd_lm``
      line;
  10. prints the ``{"kernels": [...]}`` line (ssd's row with its three
-     routes, each at its path's shape) and, last, ``{"ok": true, "device":
-     {...}}``.
+     routes, each at its path's shape; quantize's and lstm_scan_q's with
+     the int8 path's calls of each route, lstm_scan_q's with its design
+     floor; flash_attention's with its f32 kernel's time) and, last,
+     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -85,6 +87,9 @@ result.
     python3 chip_smoke.py --qmm        # the same for qmm
     python3 chip_smoke.py --dcor       # the same for pairwise_dists
     python3 chip_smoke.py --ssd        # the same for ssd's chunked routes
+    python3 chip_smoke.py --int8       # the same for quantize (every
+                                       # main-path shape, with its route)
+                                       # and lstm_scan_q
 """
 from __future__ import annotations
 
@@ -110,6 +115,25 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12  # dense, on the tensor cores
+# the clock those rates assume (67 TFLOP/s = 132 SMs x 128 FP32 lanes x 2
+# x 1.98 GHz), and an SM's results a clock: FP32 lanes, the MUFU (exp2,
+# rcp) and its conversions
+N_SMS, SM_CLOCK_HZ = 132, 1.98e9
+FP32_PER_CLK, MUFU_PER_CLK = 128, 16
+# lstm_scan_q's mma route, one (row, unit, step) of its gate chain as the
+# source writes it, estimated from the source (no SASS is read, so the
+# floor built on them is an estimate). FP32-pipe instructions: 8 dequantizations of two
+# multiplies and the exact widening's subtract, 8 adds into z and the
+# forget gate's +1, 3 sigmoids of an add, expf and a reciprocal, 2 tanhf,
+# 4 for c and h, h's abs-max, and its code through the row's reciprocal
+# scale (a multiply, three adds, a compare), counting expf as 7
+# instructions around its MUFU op, __frcp_rn as 4 and tanhf as 8
+# (estimates of libdevice's expansions, not read from the SASS). MUFU
+# operations: 3 exp2 and 3 reciprocals (the sigmoids), 2 for each tanhf
+LSTM_Q_FP32_OPS, LSTM_Q_MUFU_OPS = 95, 10
+# the route's two block barriers a step, at an assumed 24 clocks each once
+# every warp has arrived
+LSTM_Q_BARRIER_CLK = 2 * 24
 # the int8 LSTM on the card against its plain version: sigmoid/tanh ulps
 # can flip an int8 code of h (tests/test_torch_lstm.py states the same)
 Q_SCAN_ATOL, Q_SCAN_ROWS_OFF = 5e-3, 0.05
@@ -152,6 +176,9 @@ ATTN_CHECKS = [(128, 4096, 128, "bfloat16", True, 0),
                (32, 1024, 64, "bfloat16", True, 0),
                (8, 1024, 256, "bfloat16", True, 0),
                (4, 100, 128, "bfloat16", True, 0)]
+# the f32 case timed beside its bound and SDPA: the largest f32 case
+ATTN_F32_TIMED = max((c for c in ATTN_CHECKS if c[3] == "float32"),
+                     key=lambda c: c[0] * c[1] * c[1] * c[2])
 # f32: within 1e-5 of max|o|. bf16: each element within one bf16 ulp of its
 # own magnitude (the f32 sums run in another order, so a rounding can
 # flip), over a floor of the same 1e-5 of max|o| for elements near 0
@@ -381,6 +408,159 @@ def ssd_design_floor(B: int, S: int, nh: int, hd: int, G: int, N: int,
     return {"products": flops / BF16_FLOPS * 1e3,
             "workspace": nbytes / HBM_BYTES_PER_S * 1e3,
             "products_gflop": flops / 1e9, "workspace_mb": nbytes / 1e6}
+
+
+def lstm_q_design_floor(batch: int, steps: int, k_in: int,
+                        hidden: int) -> dict:
+    """The mma route's own floor (ms) at this shape, an estimate resting
+    on LSTM_Q_FP32_OPS, LSTM_Q_MUFU_OPS (counted from the source, not the
+    SASS) and LSTM_Q_BARRIER_CLK (assumed): 16 rows a block (one block an
+    SM while blocks <= 132), and each of the ``steps``
+    dependent steps no faster than the block's gate chain on its busiest
+    unit (LSTM_Q_FP32_OPS over the FP32 lanes, LSTM_Q_MUFU_OPS over the
+    MUFU, the step's m16n8k32 and m16n8k16 products at the int8 rate), plus
+    its two barriers. Units are computed 8 a warp, so padded units
+    count."""
+    rows, units = 16, 8 * -(-hidden // 8)
+    pairs = rows * units
+    waves = -(-(-(-batch // rows)) // N_SMS)
+    k32 = 32 * -(-hidden // 32)
+    tensor_ops = 2 * rows * 4 * units * (k32 + 16)
+    clk = {"fp32": pairs * LSTM_Q_FP32_OPS / FP32_PER_CLK,
+           "mufu": pairs * LSTM_Q_MUFU_OPS / MUFU_PER_CLK,
+           "tensor": tensor_ops / (INT8_OPS / N_SMS / SM_CLOCK_HZ)}
+    step_clk = max(clk.values()) + LSTM_Q_BARRIER_CLK
+    ms = waves * steps * step_clk / SM_CLOCK_HZ * 1e3
+    return {"ms": ms, "per_step_clk": {**clk, "barriers": LSTM_Q_BARRIER_CLK},
+            "bound_by": max(clk, key=clk.get)}
+
+
+def vgg_boundary_shapes(m: int) -> list:
+    """(n, d) of the VGG16 boundary codec's rows at every split of FULL for
+    ``m`` images: each NHWC activation's channel rows (the input's at
+    split 0), each flat activation's m rows."""
+    from repro_torch.models.vgg import FULL, _shapes
+    shapes = [(FULL.image_size, FULL.image_size, FULL.in_channels),
+              *_shapes(FULL)]
+    return sorted({(m * int(np.prod(sh[:-1])), int(sh[-1]))
+                   for sh in shapes})
+
+
+def quant_shape_row(x, count: int) -> dict:
+    """quantize on the card's rows ``x`` (n, d): bit-equal to its plain
+    version at qmax 127 and 7 (checked), its route, its time (qmax 127)
+    beside its bound and the plain version's."""
+    from repro_torch.kernels.quant import quantize, quantize_ref, route
+    n, d = x.shape
+    for qmax in (127, 7):
+        q, s = quantize(x, qmax)
+        torch.cuda.synchronize()
+        rq, rs = quantize_ref(x, qmax)
+        check(torch.equal(q, rq) and torch.equal(s, rs),
+              f"quantize bit-equal to plain at {(n, d)} {x.dtype}, qmax "
+              f"{qmax}")
+    which = route(n, d, x.dtype, x.data_ptr() % 16 == 0)
+    ms, host = cuda_ms(lambda: quantize(x), 50)
+    pms, phost = cuda_ms(lambda: quantize_ref(x), 10)
+    # each value read once and its code written once, one f32 scale a
+    # row; abs and max for the amax, divide, round and clip for a code
+    b_ms, by = bound(n * d * (x.element_size() + 1) + 4 * n, 5 * n * d)
+    row = {"shape": [n, d], "dtype": str(x.dtype).split(".")[-1],
+           "count": count, "route": which, "ms": ms, "plain_ms": pms,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+           "host_ms": host, "plain_host_ms": phost}
+    return row
+
+
+def lstm_q_row(rows, lq) -> tuple[dict, torch.Tensor]:
+    """lstm_scan_q on the card's windows ``rows`` (B, T, K) with the
+    quantized weights ``lq``: within Q_SCAN_ATOL of its plain version on
+    at most Q_SCAN_ROWS_OFF of the rows beyond 1e-5 (checked), its route
+    and time beside its bound, design floor and plain version's, and on
+    the tensor-core route the dp4a route's (the first version) time on
+    the same inputs and whether the two routes' outputs are bit-equal.
+    Returns the row and the kernel's output."""
+    from repro_torch.kernels.lstm import (_launch_q, lstm_route,
+                                          lstm_scan_q, lstm_scan_q_ref)
+    args = (*lq["wx"], *lq["wh"], lq["b"])
+    got = lstm_scan_q(rows, *args)
+    want = lstm_scan_q_ref(rows, *args)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    max_err, off = err.max().item(), int((err.amax(dim=1) > 1e-5).sum())
+    check(max_err <= Q_SCAN_ATOL and off <= Q_SCAN_ROWS_OFF * rows.shape[0],
+          f"lstm_scan_q within {Q_SCAN_ATOL} of plain, at most "
+          f"{Q_SCAN_ROWS_OFF:.0%} of rows beyond 1e-5 ({max_err:.3g}, "
+          f"{off} rows)")
+    batch, steps, k_in = rows.shape
+    hid = lq["wh"][0].shape[1]
+    ms, host = cuda_ms(lambda: lstm_scan_q(rows, *args), 50)
+    pms, phost = cuda_ms(  # about 1,350 launches a call
+        lambda: lstm_scan_q_ref(rows, *args), 1)
+    # int8 multiply-adds of both dots (2 each); per row and step, f32:
+    # 5 a value to quantize x_t and h, 6 a gate column to scale and add
+    # (24 a unit) and about 16 a unit for the gates; exp/tanh counted once
+    b_ms, by = bound(
+        4 * rows.numel() + lq["wx"][0].numel() + lq["wh"][0].numel()
+        + 4 * (2 * 4 * hid + 4 * hid) + 4 * batch * hid,
+        batch * steps * (5 * k_in + 45 * hid),
+        batch * steps * 2 * 4 * hid * (k_in + hid))
+    floor = lstm_q_design_floor(batch, steps, k_in, hid)
+    row = {"shape": [batch, steps, k_in, hid], "scan_route": lstm_route(hid),
+           "max_abs_err": max_err, "rows_beyond_1e-5": off, "ms": ms,
+           "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+           "design_floor_ms": floor["ms"], "design_floor": floor,
+           "host_ms": host, "plain_host_ms": phost}
+    if row["scan_route"] != "dp4a":
+        out = torch.empty_like(got)
+        _launch_q("dp4a", rows, *args, out)
+        torch.cuda.synchronize()
+        row["dp4a_bit_equal"] = bool(torch.equal(out, got))
+        row["dp4a_ms"] = cuda_ms(
+            lambda: _launch_q("dp4a", rows, *args, out), 50)[0]
+    return row, got
+
+
+def int8_kernels(dev, smi: str) -> dict:
+    """``--int8``: the quantize kernel at every main-path shape (one int8
+    run's 15, the VGG boundary's rows at every split for 8 images, both LM
+    boundaries in bf16) and lstm_scan_q at the int8 path's (2048, 30, 15),
+    H 124, on seeded random inputs and the estimator's seeded weights:
+    checks, routes and times (quant_shape_row, lstm_q_row)."""
+    from repro_torch.channel.scenarios import WINDOW
+    from repro_torch.configs import get_config
+    from repro_torch.estimator.model import EstimatorConfig, init_estimator
+    from repro_torch.estimator.serve import quantize_estimator
+    e = EstimatorConfig()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    qshapes, _ = int8_shapes(e, N_UES * T_PERIODS, fc_pass_rows(e))
+    cases = [((n, d), torch.float32, count, "int8 run")
+             for (n, d), count in sorted(qshapes.items())]
+    cases += [(nd, torch.float32, 1, "vgg boundary")
+              for nd in vgg_boundary_shapes(SPLIT_CPU_IMAGES)]
+    cases += [((LM_BATCH * LM_SEQ, get_config(a).d_model), torch.bfloat16,
+               1, a) for a in (LM_ARCH, SSD_LM_ARCH)]
+    qrows = []
+    for (n, d), dtype, count, path in cases:
+        x = (torch.randn((n, d), generator=g, device=dev)
+             * torch.rand((n, 1), generator=g, device=dev) * 10).to(dtype)
+        x[0] = 0.0  # an all-zero row: the 1e-8 scale floor
+        qrows.append(dict(quant_shape_row(x, count), path=path))
+        del x
+        print(json.dumps(qrows[-1]))
+    run = [r for r in qrows if r["path"] == "int8 run"]
+    per_run = {k: sum(r["count"] * r[k] for r in run)
+               for k in ("ms", "bound_ms", "plain_ms")}
+    params = init_estimator(e, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    lq = quantize_estimator({k: {n: v.to(dev) for n, v in d.items()}
+                             for k, d in params.items()})["lstm"]
+    rows = torch.randn((N_UES * T_PERIODS, WINDOW, e.n_kpms),
+                       generator=g, device=dev)
+    lrow, _ = lstm_q_row(rows, lq)
+    print(json.dumps({"lstm_scan_q": lrow}))
+    return {"quantize": {"per_int8_run": per_run, "shapes": qrows},
+            "lstm_scan_q": lrow, "card": smi}
 
 
 def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
@@ -860,6 +1040,7 @@ def split_path(dev, argv) -> tuple[dict, dict]:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.dcor import dcor_kernel
     from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.kernels.quant import route as quant_route
     from repro_torch.models.vgg import FULL, _shapes, forward, init_vgg, \
         layout, vgg_split_profile
 
@@ -1081,6 +1262,8 @@ def split_path(dev, argv) -> tuple[dict, dict]:
             b_ms, by = bound(5 * nd[0] * nd[1] + 4 * nd[0],
                              5 * nd[0] * nd[1])
             qrows.append({"shape": list(nd), "qmax": qmax, "split": l,
+                          "route": quant_route(*nd, x.dtype,
+                                               x.data_ptr() % 16 == 0),
                           "count": sum(1 for v in splits.values() if v == l),
                           "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                           "bound_by": by, "host_ms": host,
@@ -1170,6 +1353,8 @@ def attention_kernel(dev) -> tuple[list, dict]:
                           "of_bound": worst})
         if len(attn_rows) == 1:
             path_in = (q, k, v)
+        if case == ATTN_F32_TIMED:
+            f32_in = (q, k, v)
         del q, k, v, got, want
         torch.cuda.empty_cache()
     print(f"flash_attention vs plain: {attn_rows}")
@@ -1196,15 +1381,39 @@ def attention_kernel(dev) -> tuple[list, dict]:
     # three bf16 pieces) on the tensor cores, twice the function's work
     floor_ms, _ = bound(0.0, 0.0, bf16_ops=2 * flops)
     del q, k, v, q4, k4, v4, path_in
+    # the f32 kernel (FMAs on the CUDA cores), which no timed path runs, at
+    # the largest f32 case beside its FP32 bound and SDPA in f32
+    q, k, v = f32_in
+    fbh, fs, fdh, _, fcausal, fwin = ATTN_F32_TIMED
+    fms, fhost = cuda_ms(lambda: flash_attention(
+        q, k, v, causal=fcausal, window=fwin), 20)
+    fpms, _ = cuda_ms(lambda: attention_ref(
+        q, k, v, causal=fcausal, window=fwin), 5)
+
+    def sdpa32():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=fcausal)[0]
+
+    flib_err = float((sdpa32() - attention_ref(
+        q, k, v, causal=fcausal)).abs().max())
+    flms, _ = cuda_ms(sdpa32, 20)
+    fbytes, fflops = attention_work(fbh, fs, fdh, 4, fcausal)
+    fb_ms, fby = bound(fbytes, fflops)
+    f32 = {"shape": [fbh, fs, fdh], "causal": fcausal, "ms": fms,
+           "plain_ms": fpms, "bound_ms": fb_ms, "bound_by": fby,
+           "library_ms": flms, "library_max_abs_err": flib_err,
+           "host_ms": fhost}
+    del q, k, v, f32_in
     torch.cuda.empty_cache()
     timing = {"ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
               "design_floor_ms": floor_ms, "library_ms": lms,
               "host_ms": host, "plain_host_ms": phost,
               "library_host_ms": lhost, "library_max_abs_err": lib_err,
-              "shape": [bh, s, dh]}
+              "shape": [bh, s, dh], "f32": f32}
     print(f"flash_attention at {(bh, s, dh)} bf16 causal: {ms:.4f} ms "
           f"(bound {b_ms:.4f} ms, {by}; design floor {floor_ms:.4f} ms), "
-          f"plain {pms:.3f} ms, SDPA {lms:.4f} ms")
+          f"plain {pms:.3f} ms, SDPA {lms:.4f} ms; f32 at {(fbh, fs, fdh)}: "
+          f"{fms:.4f} ms (bound {fb_ms:.4f} ms, {fby}), SDPA {flms:.4f} ms")
     return attn_rows, timing
 
 
@@ -1273,6 +1482,7 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
     from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
     from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
     from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.kernels.quant import route as quant_route
     from repro_torch.models import init_params, lm
     from repro_torch.models.template import tree_map
 
@@ -1366,6 +1576,8 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
         n_, d_ = rows2d.shape
         qb_ms, qby = bound(3 * n_ * d_ + 4 * n_, 5 * n_ * d_)
         qrows.append({"shape": [n_, d_], "dtype": "bfloat16", "qmax": qmax,
+                      "route": quant_route(n_, d_, rows2d.dtype,
+                                           rows2d.data_ptr() % 16 == 0),
                       "count": 1, "ms": qms, "plain_ms": qpms,
                       "bound_ms": qb_ms, "bound_by": qby, "host_ms": qhost,
                       "plain_host_ms": qphost})
@@ -1725,10 +1937,9 @@ def main(argv: list[str]) -> int:
     from repro_torch.estimator.model import (EstimatorConfig, conv_trunk,
                                              full_f32, init_estimator)
     from repro_torch.estimator.serve import quantize_estimator
-    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.kernels import LAUNCHES, ROUTES, _build, reset_launches
     from repro_torch.kernels.featurize import featurize, featurize_ref
-    from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
-                                          lstm_scan_q_ref, lstm_scan_ref)
+    from repro_torch.kernels.lstm import lstm_scan, lstm_scan_ref
     from repro_torch.kernels.qmm import qmm, qmm_ref
     from repro_torch.kernels.quant import quantize, quantize_ref
     from repro_torch.models.vgg import FULL, vgg_split_profile
@@ -1781,6 +1992,9 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"ssd": dict(
             ssd_layer0(cfg, params, tokens, dev, by_launch=True), card=smi,
             checks=ssd_checks(dev))}))
+        return 0
+    if "--int8" in argv:  # quantize's and lstm_scan_q's checks and times
+        print(json.dumps({"int8": int8_kernels(dev, smi)}))
         return 0
     if "--dcor" in argv:  # pairwise_dists' checks and profile-run times
         g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1854,17 +2068,9 @@ def main(argv: list[str]) -> int:
                       and torch.equal(leaf[1], ref_s),
                       f"quantize kernel bit-equal on weight {name}")
     lq, cq, hqp = qp["lstm"], qp["cnn"], qp["head"]
-    hq8 = lstm_scan_q(rows, *lq["wx"], *lq["wh"], lq["b"])
-    hq8_ref = lstm_scan_q_ref(rows, *lq["wx"], *lq["wh"], lq["b"])
-    torch.cuda.synchronize()
-    qerr = (hq8 - hq8_ref).abs()
-    lstm_q_err = qerr.max().item()
-    lstm_q_rows = int((qerr.amax(dim=1) > 1e-5).sum())
-    check(lstm_q_err <= Q_SCAN_ATOL
-          and lstm_q_rows <= Q_SCAN_ROWS_OFF * rows.shape[0],
-          f"lstm_scan_q within {Q_SCAN_ATOL} of plain, at most "
-          f"{Q_SCAN_ROWS_OFF:.0%} of rows beyond 1e-5 ({lstm_q_err:.3g}, "
-          f"{lstm_q_rows} rows)")
+    lq_row, hq8 = lstm_q_row(rows, lq)  # checked against plain, timed
+    lstm_q_err, lstm_q_rows = lq_row["max_abs_err"], lq_row[
+        "rows_beyond_1e-5"]
     pass_rows = fc_pass_rows(e)
     iq_pass = torch.from_numpy(np.asarray(
         ep.iq[:, :T_PERIODS].reshape(-1, *ep.iq.shape[2:])[:pass_rows],
@@ -1958,11 +2164,16 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     cold8_s = time.perf_counter() - t0
     launches8 = dict(LAUNCHES)
+    routes8 = {k: dict(v) for k, v in ROUTES.items()}
     peak8_gib = torch.cuda.max_memory_allocated() / 2**30
     for name in ("featurize", "quantize", "qmm", "lstm_scan_q"):
         check(launches8[name] > 0,
               f"{name} launched on the int8 path ({launches8[name]})")
     check(launches8["lstm_scan"] == 0, "the int8 path runs no fp32 scan")
+    check(routes8["quantize"]["two_pass"] == 0
+          and routes8["lstm_scan_q"]["mma"] == launches8["lstm_scan_q"],
+          f"the int8 path's quantize reads each value once and its scan "
+          f"runs on the tensor cores ({routes8})")
     check(launches8["quantize"] == sum(quant_shapes.values())
           and launches8["qmm"] == sum(mm_shapes.values()),
           f"int8 launches {launches8} match the path's shapes")
@@ -2054,27 +2265,8 @@ def main(argv: list[str]) -> int:
     quant_rows = []
     for (n, d), count in sorted(quant_shapes.items()):
         x = torch.randn((n, d), generator=g, device=dev)
-        ms, host = cuda_ms(lambda: quantize(x), 50)
-        pms, phost = cuda_ms(lambda: quantize_ref(x), 20)
-        # abs and max for the amax; divide, round and clip for a code
-        b_ms, by = bound(4 * n * d + n * d + 4 * n, 5 * n * d)
-        quant_rows.append({"shape": [n, d], "count": count, "ms": ms,
-                           "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
-                           "library_ms": None, "host_ms": host,
-                           "plain_host_ms": phost})
+        quant_rows.append(quant_shape_row(x, count))
     mm_rows = qmm_rows(dev, mm_shapes, g)
-    lq_ms, lq_host = cuda_ms(
-        lambda: lstm_scan_q(rows, *lq["wx"], *lq["wh"], lq["b"]), 50)
-    lq_plain, lq_plain_host = cuda_ms(  # about 1,350 launches a call
-        lambda: lstm_scan_q_ref(rows, *lq["wx"], *lq["wh"], lq["b"]), 1)
-    # int8 multiply-adds of both dots (2 each); per row and step, f32:
-    # 5 a value to quantize x_t and h, 6 a gate column to scale and add
-    # (24 a unit) and about 16 a unit for the gates; exp/tanh counted once
-    k_in = e.n_kpms
-    lq_bound, lq_by = bound(
-        4 * rows.numel() + lq["wx"][0].numel() + lq["wh"][0].numel()
-        + 4 * (2 * 4 * hid + 4 * hid) + 4 * n_rows * hid,
-        steps * (5 * k_in + 45 * hid), steps * 2 * 4 * hid * (k_in + hid))
     qt, mt = shape_totals(quant_rows), shape_totals(mm_rows)
     per_run = (f"one int8 path run ({N_UES * T_PERIODS} rows, one chunk): "
                "the sum over its launches, each shape timed alone")
@@ -2085,9 +2277,8 @@ def main(argv: list[str]) -> int:
          "launches": launches8["quantize"], "max_abs_err": 0.0,
          "ms": qt["ms"], "plain_ms": qt["plain_ms"],
          "bound_ms": qt["bound_ms"], "bound_by": qt["bound_by"],
-         "library_ms": None, "host_ms": qt["host_ms"],
-         "plain_host_ms": qt["plain_host_ms"], "per": per_run,
-         "shapes": quant_rows},
+         "library_ms": None, "host_ms": qt["host_ms"], "per": per_run,
+         "routes": routes8["quantize"], "shapes": quant_rows},
         {"name": "qmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qmm.cu",
          "replaces": "src/repro/kernels/qmm/kernel.py:45",
@@ -2100,11 +2291,8 @@ def main(argv: list[str]) -> int:
         {"name": "lstm_scan_q", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_scan_q.cu",
          "replaces": "src/repro/kernels/lstm/kernel.py:120",
-         "launches": launches8["lstm_scan_q"], "max_abs_err": lstm_q_err,
-         "rows_beyond_1e-5": lstm_q_rows, "ms": lq_ms,
-         "plain_ms": lq_plain, "bound_ms": lq_bound, "bound_by": lq_by,
-         "library_ms": None, "host_ms": lq_host,
-         "plain_host_ms": lq_plain_host},
+         "launches": launches8["lstm_scan_q"], "library_ms": None,
+         "routes": routes8["lstm_scan_q"], **lq_row},
     ]
     for k in kernels:
         print(json.dumps(k))

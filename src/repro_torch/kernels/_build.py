@@ -48,9 +48,10 @@ _SIGNATURES = {
     "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wx, wh, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (x, q, scale, n, d, qmax, f32(1 / qmax), stream); x f32 or bf16
-    "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
-    "repro_quantize_rows_bf16_s8": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # (x, q, scale, n, d, qmax, f32(1 / qmax), route, stream); x f32 or
+    # bf16
+    "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "repro_quantize_rows_bf16_s8": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
     # (xq, sx, wq, sw, out, scratch, m, n, k, per_split, splits, cluster,
     #  stream)
     "repro_qmm_s8_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -60,6 +61,8 @@ _SIGNATURES = {
     # (x, wxq, wxs, whq, whs, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_q_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _P],
+    "repro_lstm_scan_q_s8_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
     # (values, ids, out, t, n, c, op, stream)
     "repro_segsum_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # (x, dt, a, bm, cm, y, state, batch, seqlen, nh, hd, groups, n, chunk,
@@ -89,7 +92,10 @@ LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
             "lstm_scan_q": 0, "segsum": 0, "ssd": 0, "pairwise_dists": 0,
             "flash_attention": 0}
 # calls of each route of a wrapper that chooses one, beside its LAUNCHES
-ROUTES = {"ssd": {"fused": 0, "chunked": 0, "chunked_wgmma": 0}}
+ROUTES = {"ssd": {"fused": 0, "chunked": 0, "chunked_wgmma": 0},
+          "quantize": {"warp": 0, "warp_scalar": 0, "block": 0,
+                       "cluster": 0, "two_pass": 0},
+          "lstm_scan_q": {"mma": 0, "dp4a": 0}}
 
 _lock = threading.Lock()
 _lib = None

@@ -12,7 +12,10 @@ The int8 serving scan is ``lstm_scan_q`` (kernel ``csrc/lstm_scan_q.cu``),
 pre-quantized rowwise per output channel (``qmm.quantize_weight``, so
 ``wxq`` (4H, K) and ``whq`` (4H, H) int8 with (4H, 1) f32 scales), and
 each step quantizes x_t and h per row before two int8 x int8 -> int32
-dots (``qdot_ref``); the gates run in f32.
+dots (``qdot_ref``); the gates run in f32. On a card ``lstm_route`` picks
+the kernel's route from the hidden size: ``"mma"`` (the int8 tensor cores,
+hidden up to ``MMA_MAX_HIDDEN``) or ``"dp4a"`` (the CUDA cores, up to
+``Q_MAX_HIDDEN``); both give the same bits.
 """
 from __future__ import annotations
 
@@ -24,6 +27,15 @@ from repro_torch.kernels.quant import quantize_ref
 
 F32 = torch.float32
 I8 = torch.int8
+# lstm_scan_q's routes: 8 hidden units a warp of at most 16 on the tensor
+# cores; the CUDA-core route for the rest
+MMA_MAX_HIDDEN = 128
+Q_MAX_HIDDEN = 224
+
+
+def lstm_route(hidden: int) -> str:
+    """The route of ``lstm_scan_q`` on a card at this hidden size."""
+    return "mma" if hidden <= MMA_MAX_HIDDEN else "dp4a"
 
 
 def _gates(z, c, hidden):
@@ -164,21 +176,32 @@ def lstm_scan_q(kpms: torch.Tensor, wxq: torch.Tensor, wxs: torch.Tensor,
         raise ValueError(f"no lstm_scan_q kernel for device {kpms.device}")
     batch, steps, k = kpms.shape
     hidden = whq.shape[1]
-    if not (1 <= k <= 16 and 1 <= hidden <= 224):
+    if not (1 <= k <= 16 and 1 <= hidden <= Q_MAX_HIDDEN):
         raise ValueError(f"the lstm_scan_q kernel takes 1-16 input features "
-                         f"and hidden sizes 1-224, got {k} and {hidden}")
+                         f"and hidden sizes 1-{Q_MAX_HIDDEN}, got {k} and "
+                         f"{hidden}")
     out = torch.empty((batch, hidden), dtype=F32, device=kpms.device)
     if batch == 0:
         return out
+    _launch_q(lstm_route(hidden), kpms, wxq, wxs, whq, whs, b, out)
+    return out
+
+
+def _launch_q(which: str, kpms, wxq, wxs, whq, whs, b, out) -> None:
+    """One launch of ``lstm_scan_q``'s route ``which`` on checked inputs,
+    counted."""
+    batch, steps, k = kpms.shape
     lib = _build.library()
+    entry = (lib.repro_lstm_scan_q_s8_mma if which == "mma"
+             else lib.repro_lstm_scan_q_s8)
     with torch.cuda.device(kpms.device):
-        rc = lib.repro_lstm_scan_q_s8(
+        rc = entry(
             kpms.data_ptr(), wxq.data_ptr(), wxs.data_ptr(), whq.data_ptr(),
             whs.data_ptr(), b.data_ptr(), out.data_ptr(), batch, steps, k,
-            hidden, torch.cuda.current_stream().cuda_stream)
+            whq.shape[1], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "lstm_scan_q")
     _build.LAUNCHES["lstm_scan_q"] += 1
-    return out
+    _build.ROUTES["lstm_scan_q"][which] += 1
 
 
 def lstm_hidden_q(kpms, wxq, wxs, whq, whs, b) -> torch.Tensor:

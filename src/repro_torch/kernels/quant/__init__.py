@@ -14,6 +14,10 @@ with a true division. Both are load-bearing: a 1-ulp skew in the scale
 flips a rounding, and so does a reciprocal in place of the division. The
 reciprocal is the double ``1 / qmax`` rounded once to f32, on the host for
 the kernel too (``jnp.float32(1.0 / qmax)`` in the reference).
+
+On a card ``route`` picks the kernel from the rows' shape, dtype and
+alignment (see ``csrc/quant.cu``); every route but ``two_pass`` reads each
+value from device memory once.
 """
 from __future__ import annotations
 
@@ -26,6 +30,47 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 I8 = torch.int8
 SCALE_FLOOR = 1e-8
+
+# the routes of csrc/quant.cu and their codes in its C entry points
+ROUTE_IDS = {"warp": 0, "warp_scalar": 1, "block": 2, "cluster": 3,
+             "two_pass": 4}
+# bytes of a row each route holds on chip: a warp's 32 lanes x 4 vectors
+# of 16 bytes, a 512-thread block's 16 vectors a thread, a cluster's
+# CLUSTER_MAX blocks (always all 8) of a slice of up to 208 KB each; values
+# of a row off the 16-byte grid that a warp's 32 lanes hold, 32 each
+WARP_MAX_BYTES = 32 * 4 * 16
+BLOCK_MAX_BYTES = 512 * 16 * 16
+CLUSTER_SLICE_MAX = 208 * 1024
+CLUSTER_MAX = 8
+SCALAR_MAX = 32 * 32
+
+
+def route(n: int, d: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The kernel a card runs for (n, d) rows of ``dtype`` (f32 or bf16):
+
+    - "warp": rows on the 16-byte grid (``aligned``: the base on 16 bytes;
+      and d times the value's bytes a multiple of 16) of up to
+      ``WARP_MAX_BYTES``, a group of 1-32 lanes a row held in registers;
+    - "warp_scalar": rows off the grid of up to ``SCALAR_MAX`` values, the
+      same with a value a load;
+    - "block": rows on the grid of up to ``BLOCK_MAX_BYTES``, a 512-thread
+      block a row held in registers;
+    - "cluster": rows on the grid of up to ``CLUSTER_MAX`` slices of
+      ``CLUSTER_SLICE_MAX``, a cluster of ``CLUSTER_MAX`` blocks a row
+      held in shared memory;
+    - "two_pass": the rest, a block a row read twice (no path of the
+      repository has such rows)."""
+    del n  # every route takes any number of rows
+    row = d * (4 if dtype == F32 else 2)
+    if not aligned or row % 16:
+        return "warp_scalar" if d <= SCALAR_MAX else "two_pass"
+    if row <= WARP_MAX_BYTES:
+        return "warp"
+    if row <= BLOCK_MAX_BYTES:
+        return "block"
+    if row <= CLUSTER_MAX * CLUSTER_SLICE_MAX:
+        return "cluster"
+    return "two_pass"
 
 
 def quantize_ref(x: torch.Tensor, qmax: int = 127):
@@ -69,16 +114,18 @@ def quantize(x: torch.Tensor, qmax: int = 127):
     scale = torch.empty((n, 1), dtype=F32, device=x.device)
     if n == 0:
         return q, scale
+    which = route(n, d, x.dtype, x.data_ptr() % 16 == 0)
     lib = _build.library()
     entry = (lib.repro_quantize_rows_bf16_s8 if x.dtype == BF16
              else lib.repro_quantize_rows_s8)
     with torch.cuda.device(x.device):
         rc = entry(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), n, d, qmax,
-            float(np.float32(1.0 / qmax)),
+            float(np.float32(1.0 / qmax)), ROUTE_IDS[which],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "quantize")
     _build.LAUNCHES["quantize"] += 1
+    _build.ROUTES["quantize"][which] += 1
     return q, scale
 
 

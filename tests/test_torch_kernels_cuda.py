@@ -24,7 +24,11 @@ from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
 from repro_torch.kernels.qmm import (K_TILE, card_fit, qmm, qmm_ref,
                                      quantize_weight)
 from repro_torch.kernels.qmm import plan as qmm_plan
-from repro_torch.kernels.quant import quantize, quantize_ref
+from repro_torch.kernels.lstm import MMA_MAX_HIDDEN, _launch_q, lstm_route
+from repro_torch.kernels.quant import (BLOCK_MAX_BYTES, CLUSTER_MAX,
+                                       CLUSTER_SLICE_MAX, SCALAR_MAX,
+                                       WARP_MAX_BYTES, quantize, quantize_ref)
+from repro_torch.kernels.quant import route as quant_route
 from repro_torch.kernels.segsum import (segment_reduce_batched,
                                         segment_reduce_ref)
 from repro_torch.kernels.ssd import route, ssd, ssd_ref
@@ -622,6 +626,139 @@ def test_quantize_kernel_bf16_bit_equal(card, n, d, qmax):
     torch.cuda.synchronize()
     rq, rs = quantize_ref(x, qmax)
     assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+# quantize's routes at each route's threshold of d (on the 16-byte grid: a
+# vector of values below, at and above it; one value either side, off the
+# grid), in f32 and bf16 and at qmax 127 and 7, from a 16-byte-aligned base
+# and from one that is not (a flat buffer's element 1 on): the rows hold a
+# zero row, a row whose amax is a negative value, a row of exact .5
+# quotients (round half to even), and random rows of spread scales
+def _route_thresholds():
+    cases = []
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        w = 16 // size
+        for top in (WARP_MAX_BYTES, BLOCK_MAX_BYTES,
+                    CLUSTER_MAX * CLUSTER_SLICE_MAX):
+            t = top // size
+            cases += [(dtype, d) for d in (t - w, t, t + w, t - 1, t + 1)]
+        cases += [(dtype, d) for d in (SCALAR_MAX - 1, SCALAR_MAX,
+                                       SCALAR_MAX + 1)]
+    return cases
+
+
+def _quant_rows(card, n, d, dtype, qmax, aligned, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=card) * torch.exp2(
+        torch.randint(-6, 7, (n, 1), generator=g, device=card).float())
+    x[0] = 0.0
+    x[1, d // 2] = -3.0 * float(x[1].abs().max()) - 1.0
+    if d >= 2:  # amax qmax, so the scale is 1 or within an ulp of it, and
+        # values k + 0.5: ties, or quotients within 2^-16 of one
+        ks = np.arange(d - 1) % (2 * qmax) - qmax + 0.5
+        x[2] = torch.from_numpy(np.concatenate([[qmax], ks]).astype(
+            np.float32))
+    x = x.to(dtype)
+    if aligned:
+        return x
+    buf = torch.empty(n * d + 8, dtype=dtype, device=card)
+    out = buf[1:1 + n * d].view(n, d)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("qmax", [127, 7])
+@pytest.mark.parametrize("dtype,d", _route_thresholds())
+def test_quantize_routes_at_thresholds_bit_equal(card, dtype, d, qmax,
+                                                 aligned):
+    n = 5 if d * 4 <= 4 * 2**20 else 3
+    x = _quant_rows(card, n, d, dtype, qmax, aligned, d + qmax)
+    reset_launches()
+    q, s = quantize(x, qmax)
+    torch.cuda.synchronize()
+    rq, rs = quantize_ref(x, qmax)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    which = quant_route(n, d, dtype, x.data_ptr() % 16 == 0)
+    assert LAUNCHES["quantize"] == 1 and ROUTES["quantize"][which] == 1
+    assert aligned or which in ("warp_scalar", "two_pass")
+
+
+# the fc's passes and its weight, in f32 and bf16, on the cluster route,
+# with the special rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [124, 223])
+def test_quantize_cluster_route_bit_equal(card, n, dtype):
+    d = 78624
+    x = _quant_rows(card, n, d, dtype, 127, True, n)
+    assert quant_route(n, d, dtype) == "cluster"
+    reset_launches()
+    q, s = quantize(x, 127)
+    torch.cuda.synchronize()
+    rq, rs = quantize_ref(x, 127)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert LAUNCHES["quantize"] == 1 and ROUTES["quantize"]["cluster"] == 1
+
+
+# a row past the cluster route's reach takes the two-pass route
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_two_pass_route_bit_equal(card, dtype):
+    d = CLUSTER_MAX * CLUSTER_SLICE_MAX // 2 + 8
+    x = _quant_rows(card, 3, d, dtype, 127, True, 7)
+    assert quant_route(3, d, dtype) == "two_pass"
+    q, s = quantize(x)
+    torch.cuda.synchronize()
+    rq, rs = quantize_ref(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+# lstm_scan_q at the edges of a block's 16 rows (batch 1, 2047, 2048), one
+# step and 64, on the tensor-core route (hidden 124) and the CUDA-core one
+# (224), with the bounds of test_lstm_q_kernel_matches_plain
+@pytest.mark.parametrize("h", [124, 224])
+@pytest.mark.parametrize("t", [1, 64])
+@pytest.mark.parametrize("b", [1, 2047, 2048])
+def test_lstm_q_kernel_routes_match_plain(card, b, t, h):
+    rng = np.random.default_rng(b + t + h)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32)).to(card)
+
+    x = f(b, t, 15)
+    wxq, wxs = quantize_weight(f(15, 4 * h, scale=15 ** -0.5))
+    whq, whs = quantize_weight(f(h, 4 * h, scale=h ** -0.5))
+    bias = f(4 * h, scale=0.1)
+    reset_launches()
+    got = lstm_scan_q(x, wxq, wxs, whq, whs, bias)
+    torch.cuda.synchronize()
+    assert ROUTES["lstm_scan_q"][lstm_route(h)] == 1
+    err = (got - lstm_scan_q_ref(x, wxq, wxs, whq, whs, bias)).abs()
+    assert float(err.max()) <= 5e-3
+    assert float((err.amax(dim=1) > 1e-5).float().mean()) <= 0.05
+
+
+# The two routes sum the same int32 products and run the same f32 chain:
+# the same bits at every hidden size the tensor-core route takes
+@pytest.mark.parametrize("h", [1, 8, 31, 33, 124, MMA_MAX_HIDDEN])
+def test_lstm_q_routes_bit_equal(card, h):
+    rng = np.random.default_rng(h)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32)).to(card)
+
+    x = f(300, 30, 15)
+    wxq, wxs = quantize_weight(f(15, 4 * h, scale=15 ** -0.5))
+    whq, whs = quantize_weight(f(h, 4 * h, scale=h ** -0.5))
+    bias = f(4 * h, scale=0.1)
+    outs = []
+    for which in ("mma", "dp4a"):
+        out = torch.empty((300, h), dtype=torch.float32, device=card)
+        _launch_q(which, x, wxq, wxs, whq, whs, bias, out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_lm_slice_on_card_matches_cpu(card):

@@ -20,8 +20,8 @@ from repro.kernels.lstm import lstm_hidden_q as ref_lstm_hidden_q
 from repro.kernels.lstm import qdot_ref as ref_qdot_ref
 from repro.kernels.qmm import quantize_weight as ref_quantize_weight
 from repro_torch.estimator.model import lstm_branch
-from repro_torch.kernels.lstm import (lstm_hidden, lstm_hidden_q, lstm_scan,
-                                      lstm_scan_q, lstm_scan_q_ref,
+from repro_torch.kernels.lstm import (lstm_hidden, lstm_hidden_q, lstm_route,
+                                      lstm_scan, lstm_scan_q, lstm_scan_q_ref,
                                       lstm_scan_ref, qdot_ref)
 from repro_torch.kernels.qmm import quantize_weight
 from repro_torch.weights import params_from_reference
@@ -167,3 +167,12 @@ def test_q_wrapper_rejects_malformed_input(bad):
         wxs = wxs[:, 0]
     with pytest.raises((TypeError, ValueError)):
         lstm_scan_q(kpms, wxq, wxs, whq, whs, bias)
+
+
+@pytest.mark.parametrize("hidden,want", [(1, "mma"), (124, "mma"),
+                                         (128, "mma"), (129, "dp4a"),
+                                         (224, "dp4a")])
+def test_lstm_scan_q_route_by_hidden(hidden, want):
+    """The estimator's H 124 takes the tensor-core route; every hidden size
+    the wrapper takes has a route."""
+    assert lstm_route(hidden) == want

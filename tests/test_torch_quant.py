@@ -2,7 +2,9 @@
 to the JAX package's ``quantize_rows`` (its Pallas kernel in interpret
 mode) on random rows, all-zero rows, a row holding -amax, exact .5 ties
 after the division, and every dense weight of the estimator at the
-paper's width."""
+paper's width. And the kernel's route on a card (``route``, pure
+Python): every shape the repository's paths quantize reads each value
+once."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,10 @@ from repro.estimator.model import init_estimator as ref_init
 from repro.kernels.qmm import quantize_weight as ref_quantize_weight
 from repro.kernels.quant import quantize_rows as ref_quantize_rows
 from repro_torch.kernels.qmm import quantize_weight
-from repro_torch.kernels.quant import quantize, quantize_ref, quantize_rows
+from repro_torch.kernels.quant import (BLOCK_MAX_BYTES, CLUSTER_MAX,
+                                       CLUSTER_SLICE_MAX, SCALAR_MAX,
+                                       WARP_MAX_BYTES, quantize, quantize_ref,
+                                       quantize_rows, route)
 
 
 def _assert_same(x: np.ndarray):
@@ -107,3 +112,71 @@ def test_wrapper_rejects_malformed_input(bad):
         x = x[:, :0]
     with pytest.raises((TypeError, ValueError)):
         quantize(x, 128 if bad == "qmax" else 127)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# every quantize of one run of the int8 path (128 UEs x 16 periods: 2048
+# estimator rows, the fc in CNN passes of 365 rows) with its count: the
+# six weights, rowwise per output channel, then the activations
+INT8_RUN = [((496, 15), 1), ((496, 124), 1), ((124, 124), 2),
+            ((124, 78624), 1), ((1, 124), 1), ((2048, 124), 3),
+            ((365, 78624), 5), ((223, 78624), 1)]
+# the boundary codec's rows: VGG16's activations at every split for 8
+# images as NHWC channel rows (the input's 3 channels at split 0) and the
+# flat ones' 8 rows; granite-8b's and mamba2-370m's bf16 boundary
+# activations (4 x 4096 tokens)
+VGG_BOUNDARY = [(401408, 3), (401408, 64), (100352, 64), (100352, 128),
+                (25088, 128), (25088, 256), (6272, 256), (6272, 512),
+                (1568, 512), (392, 512), (8, 25088), (8, 4096), (8, 1000)]
+LM_BOUNDARY = [(16384, 4096), (16384, 1024)]
+MAIN_ROUTES = {(496, 15): "warp_scalar", (401408, 3): "warp_scalar",
+               (124, 78624): "cluster", (365, 78624): "cluster",
+               (223, 78624): "cluster", (8, 25088): "block",
+               (8, 4096): "block", (8, 1000): "block", (16384, 4096): "block"}
+
+
+def test_int8_run_counts_fifteen_quantizes():
+    assert sum(c for _, c in INT8_RUN) == 15
+
+
+@pytest.mark.parametrize("shape,dtype", [(nd, F32) for nd, _ in INT8_RUN]
+                         + [(nd, F32) for nd in VGG_BOUNDARY]
+                         + [(nd, BF16) for nd in LM_BOUNDARY])
+def test_main_path_shapes_take_a_one_read_route(shape, dtype):
+    which = route(*shape, dtype)
+    assert which != "two_pass"
+    assert which == MAIN_ROUTES.get(shape, "warp")
+
+
+@pytest.mark.parametrize("dtype,size", [(F32, 4), (BF16, 2)])
+def test_route_thresholds(dtype, size):
+    w = 16 // size  # values a 16-byte vector
+    want = [(WARP_MAX_BYTES, "warp", "block"),
+            (BLOCK_MAX_BYTES, "block", "cluster"),
+            (CLUSTER_MAX * CLUSTER_SLICE_MAX, "cluster", "two_pass")]
+    for top, below, above in want:
+        t = top // size
+        assert route(5, t, dtype) == route(5, t - w, dtype) == below
+        assert route(5, t + w, dtype) == above
+        # off the 16-byte grid: a value a load, up to SCALAR_MAX values
+        off = "warp_scalar" if t + 1 <= SCALAR_MAX else "two_pass"
+        assert route(5, t + 1, dtype) == off
+        assert route(5, t, dtype, aligned=False) == (
+            "warp_scalar" if t <= SCALAR_MAX else "two_pass")
+    assert route(5, SCALAR_MAX, dtype, aligned=False) == "warp_scalar"
+    assert route(5, SCALAR_MAX + 1, dtype) == "two_pass"
+    assert route(5, w - 1, dtype) == route(5, w + 1, dtype) == "warp_scalar"
+    assert route(5, w, dtype) == "warp"
+
+
+# the cluster route's shortest row, the fc's and its longest, in f32: each
+# of a cluster's CLUSTER_MAX blocks gets a slice of 16-byte vectors, none
+# past CLUSTER_SLICE_MAX (what the C entry checks)
+@pytest.mark.parametrize("d", [BLOCK_MAX_BYTES // 4 + 4, 78624,
+                               CLUSTER_MAX * CLUSTER_SLICE_MAX // 4])
+def test_cluster_route_rows_fill_every_block_of_a_cluster(d):
+    assert route(5, d, F32) == "cluster"
+    chunks = d * 4 // 16
+    per = -(-chunks // CLUSTER_MAX)
+    assert per * 16 <= CLUSTER_SLICE_MAX
+    assert per * (CLUSTER_MAX - 1) < chunks
