@@ -19,7 +19,8 @@ In order:
   5. times each kernel at every shape its path gives it, its plain
      version, a PyTorch yardstick where one call computes the same
      function (cuDNN's LSTM, cuBLAS int8 ``torch._int_mm``), and both
-     paths end to end;
+     paths end to end; lstm_scan on its route (``cluster`` at H 124) and
+     on the other (``block``) on the same inputs, bit-equal;
   6. the multi-cell path: ``simulate_cells`` of 1024 UEs over 4 cells x 100
      periods with handovers and load-coupled interference, the pf PRB
      scheduler on the segsum kernel and the recurrent SSM estimator on the
@@ -27,7 +28,8 @@ In order:
      versions, the runs with their launch counts (cold, then three warm),
      the whole fleet against the port on the CPU, the scheduler on the
      CPU's estimates on both devices, kernel timings (``scatter_reduce_``
-     as segsum's yardstick) and an ``e2e_cells`` line;
+     as segsum's yardstick, and segsum's fixed cost: a launch at (1, 32) ->
+     1) and an ``e2e_cells`` line;
   7. the split-computing path at VGG16's full width (224 px, 48 textured
      images): the forward at all 43 split points, dCor(input, activation)
      through the pairwise_dists kernel, the measured profile and PSO table,
@@ -73,8 +75,10 @@ In order:
  10. prints the ``{"kernels": [...]}`` line (ssd's row with its three
      routes, each at its path's shape; quantize's and lstm_scan_q's with
      the int8 path's calls of each route, lstm_scan_q's with its design
-     floor; flash_attention's with its f32 kernel's time) and, last,
-     ``{"ok": true, "device": {...}}``.
+     floor; lstm_scan's with the fp32 path's calls of each route, the
+     block route's time on the same inputs and its design floor; segsum's
+     with its fixed cost, a launch at (1, 32) -> 1; flash_attention's with
+     its f32 kernel's time) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -90,6 +94,10 @@ result.
     python3 chip_smoke.py --int8       # the same for quantize (every
                                        # main-path shape, with its route)
                                        # and lstm_scan_q
+    python3 chip_smoke.py --scan       # the same for lstm_scan (each
+                                       # route), the fused ssd route (the
+                                       # cells call and every fused shape
+                                       # checked) and segsum's fixed cost
 """
 from __future__ import annotations
 
@@ -134,6 +142,22 @@ LSTM_Q_FP32_OPS, LSTM_Q_MUFU_OPS = 95, 10
 # the route's two block barriers a step, at an assumed 24 clocks each once
 # every warp has arrived
 LSTM_Q_BARRIER_CLK = 2 * 24
+# lstm_scan's cluster route, one (row, unit, step) of its gate chain as the
+# source writes it (``cell``), counted as LSTM_Q_FP32_OPS is: 9 adds into z
+# and the forget gate's +1, 3 sigmoids of expf, an add and __frcp_rn, 2
+# tanhf, 3 for c and 1 for h, counting expf as 7 instructions, __frcp_rn as
+# 4 and tanhf as 8; MUFU operations as there. The x_t and h products are
+# counted apart, as FMAs
+LSTM_FP32_OPS, LSTM_MUFU_OPS = 65, 10
+# the route's one cluster barrier a step (arrival to the end of the wait,
+# once every thread of the two blocks has arrived), assumed
+LSTM_CLUSTER_BARRIER_CLK = 200
+# the fused ssd route's calls checked against ssd_ref, (B, S, L, nh, hd, G,
+# N): the cells path's (the recurrent estimator at 1024 UEs: K = 3
+# forecasts over 192 padded steps), then smaller shapes of other widths,
+# groups and chunks; each within 1e-4 (y) and 1e-3 (state)
+SSD_FUSED_SHAPES = [(CELLS_UES, 192, 64, 4, 8, 1, 8), (2, 64, 16, 4, 16, 1, 8),
+                    (2, 128, 32, 8, 32, 2, 16), (2, 96, 96, 2, 8, 1, 4)]
 # the int8 LSTM on the card against its plain version: sigmoid/tanh ulps
 # can flip an int8 code of h (tests/test_torch_lstm.py states the same)
 Q_SCAN_ATOL, Q_SCAN_ROWS_OFF = 5e-3, 0.05
@@ -435,6 +459,180 @@ def lstm_q_design_floor(batch: int, steps: int, k_in: int,
             "bound_by": max(clk, key=clk.get)}
 
 
+def lstm_design_floor(batch: int, steps: int, k_in: int,
+                      hidden: int) -> dict:
+    """The cluster route's own floor (ms) at this shape, an estimate resting
+    on LSTM_FP32_OPS, LSTM_MUFU_OPS (counted from the source, not the SASS)
+    and LSTM_CLUSTER_BARRIER_CLK (assumed): a block a 32-row tile and half
+    the units, padded to 64 (one block an SM while blocks <= 132), and each
+    of the ``steps`` dependent steps no faster than the busiest block's
+    multiply-adds of x_t and h over the SM's 128 FP32 lanes, then its gate
+    chain (its FP32 instructions over the lanes or its MUFU operations over
+    the MUFU, whichever takes longer), then one cluster barrier."""
+    rows, units = 32, 64
+    pairs = rows * units
+    blocks = 2 * -(-batch // rows)
+    waves = -(-blocks // N_SMS)
+    clk = {"fma": rows * 4 * units * (hidden + k_in) / FP32_PER_CLK,
+           "gates_fp32": pairs * LSTM_FP32_OPS / FP32_PER_CLK,
+           "gates_mufu": pairs * LSTM_MUFU_OPS / MUFU_PER_CLK,
+           "barrier": LSTM_CLUSTER_BARRIER_CLK}
+    step_clk = (clk["fma"] + max(clk["gates_fp32"], clk["gates_mufu"])
+                + clk["barrier"])
+    return {"ms": waves * steps * step_clk / SM_CLOCK_HZ * 1e3,
+            "per_step_clk": clk}
+
+
+def lstm_row(rows, lp) -> tuple[dict, torch.Tensor]:
+    """lstm_scan on the card's windows ``rows`` (B, T, K) with the f32
+    weights ``lp``: each route within rtol 1e-4, atol 1e-5 of the plain
+    version and the routes bit-equal (checked), the path's route and time
+    beside the other route's on the same inputs, the plain version's,
+    cuDNN's LSTM (the yardstick), the bound and the design floor. Returns
+    the row and the kernel's output."""
+    from repro_torch.kernels.lstm import (CLUSTER_MAX_HIDDEN, _launch,
+                                          lstm_scan, lstm_scan_ref,
+                                          lstm_scan_route)
+    wx, wh, b = lp["wx"], lp["wh"], lp["b"]
+    batch, steps, k_in = rows.shape
+    hid = wh.shape[0]
+    h = lstm_scan(rows, wx, wh, b)
+    h_ref = lstm_scan_ref(rows, wx, wh, b)
+    torch.cuda.synchronize()
+    err = (h - h_ref).abs().max().item()
+    check(torch.allclose(h, h_ref, rtol=1e-4, atol=1e-5),
+          f"lstm_scan within rtol 1e-4, atol 1e-5 of plain ({err:.3g})")
+    which = lstm_scan_route(hid, k_in)
+    row = {"shape": [batch, steps, k_in, hid], "scan_route": which,
+           "max_abs_err": err}
+    others = [r for r in ("cluster", "block") if r != which
+              and (r == "block" or hid <= CLUSTER_MAX_HIDDEN)]
+    for other in others:
+        out = torch.empty_like(h)
+        _launch(other, rows, wx, wh, b, out)
+        torch.cuda.synchronize()
+        check(torch.equal(out, h), f"lstm_scan's {other} route bit-equal "
+              f"to its {which} route at {tuple(row['shape'])}")
+        row[f"{other}_bit_equal"] = True
+        row[f"{other}_ms"] = cuda_ms(
+            lambda: _launch(other, rows, wx, wh, b, out), 50)[0]
+    row["ms"], row["host_ms"] = cuda_ms(
+        lambda: lstm_scan(rows, wx, wh, b), 50)
+    row["plain_ms"], row["plain_host_ms"] = cuda_ms(  # ~14 launches a step
+        lambda: lstm_scan_ref(rows, wx, wh, b), 2)
+    # multiply-adds of both products (2 each), the two sums and the bias
+    # per gate, and 5 multiply/adds of the state update; exp/tanh uncounted
+    flops = batch * steps * (2 * 4 * hid * (k_in + hid) + 2 * 4 * hid
+                             + 5 * hid)
+    nbytes = 4 * (rows.numel() + wx.numel() + wh.numel() + b.numel()
+                  + batch * hid)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    if which == "cluster":
+        floor = lstm_design_floor(batch, steps, k_in, hid)
+        row["design_floor_ms"], row["design_floor"] = floor["ms"], floor
+    # yardstick only (the port never calls it): cuDNN's LSTM computes the
+    # same cell with weight_ih = wx.T, weight_hh = wh.T, bias_ih = b and
+    # +1 on the forget slice of bias_hh (gate order i, f, g, o in both)
+    ref_lstm = torch.nn.LSTM(k_in, hid, batch_first=True).to(rows.device)
+    with torch.no_grad():
+        ref_lstm.weight_ih_l0.copy_(wx.T)
+        ref_lstm.weight_hh_l0.copy_(wh.T)
+        ref_lstm.bias_ih_l0.copy_(b)
+        ref_lstm.bias_hh_l0.zero_()
+        ref_lstm.bias_hh_l0[hid:2 * hid] = 1.0
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        row["library_max_abs_err"] = (ref_lstm(rows)[1][0][0]
+                                      - h_ref).abs().max().item()
+        row["library_ms"], row["library_host_ms"] = cuda_ms(
+            lambda: ref_lstm(rows), 20)
+    return row, h
+
+
+def ssd_inputs(g, dev, B: int, S: int, nh: int, hd: int, G: int, N: int):
+    """Seeded ssd inputs on the card as the recurrent estimator draws
+    them: x, B, C normal, dt softplus(normal) / 2, A = -exp(normal * 0.3)."""
+    x = torch.randn((B, S, nh, hd), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, nh), generator=g, device=dev)) * 0.5
+    A = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.3)
+    Bm = torch.randn((B, S, G, N), generator=g, device=dev)
+    Cm = torch.randn((B, S, G, N), generator=g, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_fused_row(x, dt, A, Bm, Cm, L: int) -> dict:
+    """The fused ssd route on these inputs: one launch on the fused route
+    within 1e-4 (y) and 1e-3 (state) of ssd_ref (checked), its instance
+    (``fused_instance``), time, bound and the plain version's time."""
+    from repro_torch.kernels import ROUTES, reset_launches
+    from repro_torch.kernels.ssd import fused_instance, route, ssd, ssd_ref
+    B, S, nh, hd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    shape = (B, S, L, nh, hd, G, N)
+    check(route(x.dtype, nh // G, hd, N, L) == "fused",
+          f"ssd at {shape} takes the fused route")
+    reset_launches()
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    check(ROUTES["ssd"]["fused"] == 1, f"one fused launch at {shape}")
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+    check(torch.allclose(y, yr, rtol=1e-4, atol=1e-4)
+          and torch.allclose(st, sr, rtol=1e-3, atol=1e-3),
+          f"ssd within 1e-4 (y) and 1e-3 (state) of plain at {shape}")
+    nbytes, elem, prod = ssd_work(B, S, nh, hd, G, N, L)
+    b_ms, by = bound(nbytes, elem + prod)
+    ms, host = cuda_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=L), 50)
+    pms, phost = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, L), 5)
+    return {"shape": list(shape), "dtype": "float32",
+            "instance": fused_instance(nh // G, hd, N, L),
+            "max_abs_err": (y - yr).abs().max().item(),
+            "state_max_abs_err": (st - sr).abs().max().item(), "ms": ms,
+            "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
+            "host_ms": host, "plain_host_ms": phost}
+
+
+def segsum_fixed(dev, g) -> dict:
+    """segsum's fixed cost: a launch at (1, 32) -> 1 segment (sum), whose
+    work is nothing, timed as the path's (1, 1024) -> 4 launch beside it."""
+    from repro_torch.kernels.segsum import segment_reduce_batched
+    out = {}
+    for t_, n_, c_ in ((1, 32, 1), (1, 1024, 4)):
+        v = torch.rand((t_, n_), generator=g, device=dev)
+        ids = torch.randint(0, c_, (t_, n_), generator=g, device=dev,
+                            dtype=torch.int32)
+        out[f"{t_}x{n_}->{c_}"] = cuda_ms(
+            lambda: segment_reduce_batched(v, ids, c_), 200)[0]
+    return {"fixed_ms": out["1x32->1"], "shapes_ms": out}
+
+
+def scan_kernels(dev, smi: str) -> dict:
+    """``--scan``: lstm_scan at the fp32 path's (2048, 30, 15), H 124, on
+    seeded random windows and the estimator's seeded weights (lstm_row:
+    each route, cuDNN's LSTM beside them); the fused ssd route at every
+    shape of SSD_FUSED_SHAPES (ssd_fused_row); segsum's fixed cost."""
+    from repro_torch.channel.scenarios import WINDOW
+    from repro_torch.estimator.model import EstimatorConfig, init_estimator
+    e = EstimatorConfig()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_estimator(e, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    lp = {k: v.to(dev) for k, v in params["lstm"].items()}
+    rows = torch.randn((N_UES * T_PERIODS, WINDOW, e.n_kpms), generator=g,
+                       device=dev)
+    lrow, _ = lstm_row(rows, lp)
+    print(json.dumps({"lstm_scan": lrow}))
+    srows = []
+    for B, S, L, nh, hd, G, N in SSD_FUSED_SHAPES:
+        srows.append(ssd_fused_row(*ssd_inputs(g, dev, B, S, nh, hd, G, N),
+                                   L))
+        print(json.dumps({"ssd_fused": srows[-1]}))
+    seg = segsum_fixed(dev, g)
+    print(json.dumps({"segsum": seg}))
+    return {"lstm_scan": lrow, "ssd_fused": srows, "segsum": seg,
+            "card": smi}
+
+
 def vgg_boundary_shapes(m: int) -> list:
     """(n, d) of the VGG16 boundary codec's rows at every split of FULL for
     ``m`` images: each NHWC activation's channel rows (the input's at
@@ -578,7 +776,6 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
     from repro_torch.kernels.segsum import (segment_reduce_batched,
                                             segment_reduce_ref)
-    from repro_torch.kernels.ssd import route, ssd, ssd_ref
     from repro_torch.sim import (SchedulerConfig, attach_ring,
                                  build_cells_episode, cell_load,
                                  estimate_fleet, handover_grid,
@@ -644,32 +841,17 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     load = cell_load(grid, ep.alloc_ratio, C, use_kernel=True, device=dev)
     check(np.allclose(load, cell_load(grid, ep.alloc_ratio, C), rtol=1e-5,
                       atol=1e-6), "cell_load on the kernel vs the host")
-    ssd_shapes = [(n, 192, 64, 4, 8, 1, 8), (2, 64, 16, 4, 16, 1, 8),
-                  (2, 128, 32, 8, 32, 2, 16), (2, 96, 96, 2, 8, 1, 4)]
-    ssd_err = [0.0, 0.0]
-    for B, S, L, nh, hd, G, N in ssd_shapes:
-        x = torch.randn((B, S, nh, hd), generator=g, device=dev)
-        dt = torch.nn.functional.softplus(
-            torch.randn((B, S, nh), generator=g, device=dev)) * 0.5
-        A = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.3)
-        Bm = torch.randn((B, S, G, N), generator=g, device=dev)
-        Cm = torch.randn((B, S, G, N), generator=g, device=dev)
-        y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
-        torch.cuda.synchronize()
-        yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
-        check(torch.allclose(y, yr, rtol=1e-4, atol=1e-4)
-              and torch.allclose(st, sr, rtol=1e-3, atol=1e-3),
-              f"ssd within 1e-4 (y) and 1e-3 (state) of plain at "
-              f"{(B, S, L, nh, hd, G, N)}")
-        ssd_err = [max(ssd_err[0], (y - yr).abs().max().item()),
-                   max(ssd_err[1], (st - sr).abs().max().item())]
-        if B == n:
-            ssd_in = (x, dt, A, Bm, Cm, L)
+    # the fused ssd route at each shape, checked and timed (the first is
+    # the path's call)
+    ssd_rows = [ssd_fused_row(*ssd_inputs(g, dev, B, S, nh, hd, G, N), L)
+                for B, S, L, nh, hd, G, N in SSD_FUSED_SHAPES]
+    ssd_err = [max(r[k] for r in ssd_rows)
+               for k in ("max_abs_err", "state_max_abs_err")]
     print(f"cells kernels vs plain: segsum max bit-equal, sum max |err| "
           f"{seg_err:.3g} (rtol 1e-6) at (1, {n}), ({T + W}, {n}) and a "
           f"masked (7, 1024) with ids in [-3, {C + 3}); ssd max |err| "
           f"y {ssd_err[0]:.3g}, state {ssd_err[1]:.3g} at "
-          f"{[s[:5] for s in ssd_shapes]}")
+          f"{[s[:5] for s in SSD_FUSED_SHAPES]}")
 
     # the path: cold once, then warm three times, counters around each run
     def run(policy="pf"):
@@ -819,13 +1001,7 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
                 "plain_host_ms": phost, "library_host_ms": lhost,
                 "library_max_abs_err": lib_err})
     main_row = seg_rows[0]  # sum at (1, 1024): the pf path's launch
-    x, dt, A, Bm, Cm, L = ssd_in
-    ssd_ms, ssd_host = cuda_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=L), 50)
-    ssd_plain, ssd_plain_host = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, L),
-                                        5)
-    B, S, nh, hd = x.shape
-    nbytes, elem, prod = ssd_work(B, S, nh, hd, Bm.shape[2], Bm.shape[3], L)
-    ssd_bound, ssd_by = bound(nbytes, elem + prod)
+    seg_fixed = segsum_fixed(dev, g)
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
@@ -852,19 +1028,16 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
          "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
          "library_ms": main_row["library_ms"], "host_ms": main_row["host_ms"],
          "plain_host_ms": main_row["plain_host_ms"],
+         "fixed_ms": seg_fixed["fixed_ms"], "fixed": seg_fixed,
          "per": f"one launch at the pf scheduler's shape (1, {n}) -> {C}, "
                f"{T} a run; shapes: each op at both path shapes",
          "shapes": seg_rows},
-        {"route": route(x.dtype, nh // Bm.shape[2], hd, Bm.shape[3], L),
+        {**ssd_rows[0], "route": "fused",
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
          "device_launches_per_call": 1, "path": "cells",
          "launches": launches["ssd"], "max_abs_err": ssd_err[0],
-         "state_max_abs_err": ssd_err[1], "ms": ssd_ms,
-         "plain_ms": ssd_plain, "bound_ms": ssd_bound, "bound_by": ssd_by,
-         "library_ms": None, "library": "none (no one call)",
-         "host_ms": ssd_host, "plain_host_ms": ssd_plain_host,
-         "shape": [B, S, nh, hd, Bm.shape[2], Bm.shape[3], L],
-         "dtype": "float32"},
+         "state_max_abs_err": ssd_err[1], "library_ms": None,
+         "library": "none (no one call)", "shapes": ssd_rows[1:]},
     ]
 
 
@@ -1996,6 +2169,9 @@ def main(argv: list[str]) -> int:
     if "--int8" in argv:  # quantize's and lstm_scan_q's checks and times
         print(json.dumps({"int8": int8_kernels(dev, smi)}))
         return 0
+    if "--scan" in argv:  # lstm_scan's, the fused ssd's and segsum's
+        print(json.dumps({"scan": scan_kernels(dev, smi)}))
+        return 0
     if "--dcor" in argv:  # pairwise_dists' checks and profile-run times
         g = torch.Generator(device=dev).manual_seed(SEED)
         err, rel = pairwise_checks(dev, g)
@@ -2110,10 +2286,13 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    lstm_routes = dict(ROUTES["lstm_scan"])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name in ("featurize", "lstm_scan"):
         check(launches[name] > 0,
               f"{name} launched on the main path ({launches[name]})")
+    check(lstm_routes["cluster"] == launches["lstm_scan"],
+          f"the fp32 path's scans take the cluster route ({lstm_routes})")
     check(launches["quantize"] == launches["qmm"]
           == launches["lstm_scan_q"] == 0, "the fp32 path runs no int8")
     check(res.est_tp.shape == (N_UES, T_PERIODS), "estimate shape")
@@ -2208,7 +2387,6 @@ def main(argv: list[str]) -> int:
           f"first run {cold8_s:.3f} s")
 
     # 5. timings
-    n_rows, hid = rows.shape[0], e.lstm_hidden
     feat_ms, feat_host = cuda_ms(
         lambda: featurize(slab, center, scale, W), 100)
     feat_plain, feat_plain_host = cuda_ms(
@@ -2216,33 +2394,9 @@ def main(argv: list[str]) -> int:
     n_out = win.numel()
     feat_bound, feat_by = bound(4 * (slab.numel() + 2 * e.n_kpms + n_out),
                                 2 * n_out)
-    lstm_ms, lstm_host = cuda_ms(
-        lambda: lstm_scan(rows, lp["wx"], lp["wh"], lp["b"]), 50)
-    lstm_plain, lstm_plain_host = cuda_ms(  # about 420 launches a call
-        lambda: lstm_scan_ref(rows, lp["wx"], lp["wh"], lp["b"]), 2)
-    # multiply-adds of both products (2 each), the two sums and the bias
-    # per gate, and 5 multiply/adds of the state update; exp/tanh uncounted
-    steps = n_rows * W
-    lstm_flops = steps * (2 * 4 * hid * (e.n_kpms + hid) + 2 * 4 * hid
-                          + 5 * hid)
-    lstm_bytes = 4 * (rows.numel() + lp["wx"].numel() + lp["wh"].numel()
-                      + lp["b"].numel() + n_rows * hid)
-    lstm_bound, lstm_by = bound(lstm_bytes, lstm_flops)
-    # yardstick only (the port never calls it): cuDNN's LSTM computes the
-    # same cell with weight_ih = wx.T, weight_hh = wh.T, bias_ih = b and
-    # +1 on the forget slice of bias_hh (gate order i, f, g, o in both)
-    ref_lstm = torch.nn.LSTM(e.n_kpms, hid, batch_first=True).to(dev)
-    with torch.no_grad():
-        ref_lstm.weight_ih_l0.copy_(lp["wx"].T)
-        ref_lstm.weight_hh_l0.copy_(lp["wh"].T)
-        ref_lstm.bias_ih_l0.copy_(lp["b"])
-        ref_lstm.bias_hh_l0.zero_()
-        ref_lstm.bias_hh_l0[hid:2 * hid] = 1.0
-    with torch.inference_mode(), torch.backends.cudnn.flags(
-            enabled=True, allow_tf32=False):
-        lib_err = (ref_lstm(rows)[1][0][0] - h_ref).abs().max().item()
-        lib_ms, lib_host = cuda_ms(lambda: ref_lstm(rows), 20)
-    print(f"cuDNN LSTM yardstick max |err| vs plain {lib_err:.3g}")
+    lrow, _ = lstm_row(rows, lp)  # checked against plain, timed
+    print(f"cuDNN LSTM yardstick max |err| vs plain "
+          f"{lrow['library_max_abs_err']:.3g}")
     kernels = [
         {"name": "featurize", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/featurize.cu",
@@ -2254,10 +2408,8 @@ def main(argv: list[str]) -> int:
         {"name": "lstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_scan.cu",
          "replaces": "src/repro/kernels/lstm/kernel.py:92",
-         "launches": launches["lstm_scan"], "max_abs_err": lstm_err,
-         "ms": lstm_ms, "plain_ms": lstm_plain, "bound_ms": lstm_bound,
-         "bound_by": lstm_by, "library_ms": lib_ms, "host_ms": lstm_host,
-         "plain_host_ms": lstm_plain_host, "library_host_ms": lib_host},
+         "launches": launches["lstm_scan"], "routes": lstm_routes,
+         **lrow, "max_abs_err": lstm_err},
     ]
 
     # the int8 kernels at every shape of one int8 run, each timed alone

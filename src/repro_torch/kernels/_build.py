@@ -48,6 +48,7 @@ _SIGNATURES = {
     "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, wx, wh, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_lstm_scan_f32_cluster": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, q, scale, n, d, qmax, f32(1 / qmax), route, stream); x f32 or
     # bf16
     "repro_quantize_rows_s8": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
@@ -95,7 +96,8 @@ LAUNCHES = {"featurize": 0, "lstm_scan": 0, "quantize": 0, "qmm": 0,
 ROUTES = {"ssd": {"fused": 0, "chunked": 0, "chunked_wgmma": 0},
           "quantize": {"warp": 0, "warp_scalar": 0, "block": 0,
                        "cluster": 0, "two_pass": 0},
-          "lstm_scan_q": {"mma": 0, "dp4a": 0}}
+          "lstm_scan_q": {"mma": 0, "dp4a": 0},
+          "lstm_scan": {"cluster": 0, "block": 0}}
 
 _lock = threading.Lock()
 _lib = None

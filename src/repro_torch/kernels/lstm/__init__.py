@@ -3,9 +3,13 @@ projection, in fp32 and in int8 for serving.
 
 ``lstm_scan`` is the wrapper of the CUDA kernel ``csrc/lstm_scan.cu``;
 ``lstm_scan_ref`` is its plain PyTorch version, which the wrapper runs for
-tensors on the CPU and the tests hold the kernel to. ``lstm_hidden`` is the
-dispatch the estimator calls: ``lstm_hidden(...) @ proj`` is
-``estimator.model.lstm_branch``.
+tensors on the CPU and the tests hold the kernel to. On a card
+``lstm_scan_route`` picks the kernel's route from the hidden size:
+``"cluster"`` (a cluster of two blocks holds wh in shared memory, hidden up
+to ``CLUSTER_MAX_HIDDEN``: the estimator's) or ``"block"`` (the first
+version, wh read through the L2, up to 1024); both give the same bits.
+``lstm_hidden`` is the dispatch the estimator calls: ``lstm_hidden(...) @
+proj`` is ``estimator.model.lstm_branch``.
 
 The int8 serving scan is ``lstm_scan_q`` (kernel ``csrc/lstm_scan_q.cu``),
 ``lstm_scan_q_ref`` and the dispatch ``lstm_hidden_q``: the weights come
@@ -31,6 +35,17 @@ I8 = torch.int8
 # cores; the CUDA-core route for the rest
 MMA_MAX_HIDDEN = 128
 Q_MAX_HIDDEN = 224
+# lstm_scan's routes: 64 hidden units a block of a cluster of two; the
+# first version for the rest
+CLUSTER_MAX_HIDDEN = 128
+MAX_HIDDEN = 1024
+
+
+def lstm_scan_route(hidden: int, k_in: int) -> str:
+    """The route of ``lstm_scan`` on a card at this hidden size and input
+    width (both routes take 1-16 inputs)."""
+    del k_in
+    return "cluster" if hidden <= CLUSTER_MAX_HIDDEN else "block"
 
 
 def lstm_route(hidden: int) -> str:
@@ -112,21 +127,31 @@ def lstm_scan(kpms: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
         raise ValueError(f"no lstm_scan kernel for device {kpms.device}")
     batch, steps, k = kpms.shape
     hidden = wh.shape[0]
-    if not (1 <= k <= 16 and 1 <= hidden <= 1024):
+    if not (1 <= k <= 16 and 1 <= hidden <= MAX_HIDDEN):
         raise ValueError(f"the lstm_scan kernel takes 1-16 input features "
-                         f"and hidden sizes 1-1024, got {k} and {hidden}")
+                         f"and hidden sizes 1-{MAX_HIDDEN}, got {k} and "
+                         f"{hidden}")
     out = torch.empty((batch, hidden), dtype=F32, device=kpms.device)
     if batch == 0:
         return out
+    _launch(lstm_scan_route(hidden, k), kpms, wx, wh, b, out)
+    return out
+
+
+def _launch(which: str, kpms, wx, wh, b, out) -> None:
+    """One launch of ``lstm_scan``'s route ``which`` on checked inputs,
+    counted."""
+    batch, steps, k = kpms.shape
     lib = _build.library()
+    entry = (lib.repro_lstm_scan_f32_cluster if which == "cluster"
+             else lib.repro_lstm_scan_f32)
     with torch.cuda.device(kpms.device):
-        rc = lib.repro_lstm_scan_f32(
-            kpms.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            out.data_ptr(), batch, steps, k, hidden,
-            torch.cuda.current_stream().cuda_stream)
+        rc = entry(kpms.data_ptr(), wx.data_ptr(), wh.data_ptr(),
+                   b.data_ptr(), out.data_ptr(), batch, steps, k,
+                   wh.shape[0], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "lstm_scan")
     _build.LAUNCHES["lstm_scan"] += 1
-    return out
+    _build.ROUTES["lstm_scan"][which] += 1
 
 
 def lstm_hidden(kpms, wx, wh, b) -> torch.Tensor:

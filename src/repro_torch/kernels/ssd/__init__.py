@@ -103,8 +103,31 @@ def smem_bytes(hpg: int, hd: int, n: int, chunk: int) -> int:
                 + chunk * (chunk + 1) // 2 + hpg * hd * n)
 
 
+# (hpg, hd, N) of the fused route's compile-time instances
+# (``csrc/ssd.cu`` namespace ``fz``): the recurrent estimator's first
+FUSED_INSTANCES = ((4, 8, 8), (4, 16, 8), (4, 32, 16))
+
+
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+def fused_instance(hpg: int, hd: int, n: int, chunk: int,
+                   aligned: bool = True) -> str:
+    """Which kernel of the fused route runs (``csrc/ssd.cu``'s C entry
+    picks it): ``"{hpg}x{hd}x{n}"``, a compile-time instance, where the
+    shape is one of ``FUSED_INSTANCES``, x, Bm, Cm, y and the state start
+    on 16 bytes (``aligned``) and the instance's working set fits a block
+    (dt, B, C and x, lcum and the end decays, four warps' C.B rows of a
+    slot, two states); else ``"generic"``. Only for shapes ``route`` sends
+    to the fused route."""
+    if aligned and (hpg, hd, n) in FUSED_INSTANCES:
+        floats = (3 * _round_up(chunk * hpg, 4) + 2 * chunk * n
+                  + chunk * hpg * hd + 4 * chunk * (32 // hpg)
+                  + 2 * hpg * hd * n)
+        if 4 * floats <= SMEM_BYTES:
+            return f"{hpg}x{hd}x{n}"
+    return "generic"
 
 
 def padded_n(n: int) -> int:
@@ -134,7 +157,8 @@ def route(dtype: torch.dtype, hpg: int, hd: int, n: int, chunk: int,
     """The kernel a card runs for these inputs:
 
     - "fused" (``csrc/ssd.cu``, one block a (batch, group) row with the
-      carried state in shared memory) for f32 chunks of at most
+      carried state in shared memory; a compile-time instance where
+      ``fused_instance`` names one) for f32 chunks of at most
       ``FUSED_MAX_CHUNK`` steps whose working set fits a block;
     - "chunked_wgmma" (``csrc/ssd_chunked.cu``, namespace ``tc``: chunk
       states, state passing and an attention-shaped chunk scan on bf16

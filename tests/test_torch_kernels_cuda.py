@@ -25,13 +25,15 @@ from repro_torch.kernels.qmm import (K_TILE, card_fit, qmm, qmm_ref,
                                      quantize_weight)
 from repro_torch.kernels.qmm import plan as qmm_plan
 from repro_torch.kernels.lstm import MMA_MAX_HIDDEN, _launch_q, lstm_route
+from repro_torch.kernels.lstm import (CLUSTER_MAX_HIDDEN, _launch,
+                                      lstm_scan_route)
 from repro_torch.kernels.quant import (BLOCK_MAX_BYTES, CLUSTER_MAX,
                                        CLUSTER_SLICE_MAX, SCALAR_MAX,
                                        WARP_MAX_BYTES, quantize, quantize_ref)
 from repro_torch.kernels.quant import route as quant_route
 from repro_torch.kernels.segsum import (segment_reduce_batched,
                                         segment_reduce_ref)
-from repro_torch.kernels.ssd import route, ssd, ssd_ref
+from repro_torch.kernels.ssd import fused_instance, route, ssd, ssd_ref
 from repro_torch.configs import get_config
 from repro_torch.core import boundary
 from repro_torch.core.splitting import lm_split_infer
@@ -80,6 +82,73 @@ def test_lstm_kernel_matches_plain(card, b, h):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, lstm_scan_ref(x, wx, wh, bias),
                                rtol=1e-4, atol=1e-5)
+
+
+def _lstm_inputs(card, b, t, h, k=15):
+    """Windows and weights at the usual LSTM scale, 1 / sqrt(fan-in), as
+    the int8 scan's tests have them: with test_lstm_kernel_matches_plain's
+    0.3 the random recurrence at H 200 over 64 steps is chaotic, and two
+    f32 sum orders (the plain version's products, float64) drift apart by
+    10^-4 and more."""
+    rng = np.random.default_rng(b + 7 * t + h + k)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32)).to(card)
+
+    return (f(b, t, k), f(k, 4 * h, scale=k ** -0.5),
+            f(h, 4 * h, scale=h ** -0.5), f(4 * h, scale=0.1))
+
+
+# lstm_scan on its route at the edges of a cluster's 32 rows and a block's
+# 16 (batch 1, 31, 2047, 2048, 2049), one step and 64, the estimator's
+# H 124, the cluster route's widest 128 and the block route's 200, with
+# the bounds of test_lstm_kernel_matches_plain; at H <= 128 the block
+# route on the same inputs too
+@pytest.mark.parametrize("h", [124, CLUSTER_MAX_HIDDEN, 200])
+@pytest.mark.parametrize("t", [1, 64])
+@pytest.mark.parametrize("b", [1, 31, 2047, 2048, 2049])
+def test_lstm_kernel_routes_match_plain(card, b, t, h):
+    x, wx, wh, bias = _lstm_inputs(card, b, t, h)
+    reset_launches()
+    got = lstm_scan(x, wx, wh, bias)
+    torch.cuda.synchronize()
+    which = lstm_scan_route(h, 15)
+    assert which == ("cluster" if h <= CLUSTER_MAX_HIDDEN else "block")
+    assert LAUNCHES["lstm_scan"] == 1 and ROUTES["lstm_scan"][which] == 1
+    want = lstm_scan_ref(x, wx, wh, bias)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    if which == "cluster":
+        out = torch.empty_like(got)
+        _launch("block", x, wx, wh, bias, out)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+
+
+# one input feature and the most the kernel takes, on both routes
+@pytest.mark.parametrize("h", [124, 200])
+@pytest.mark.parametrize("k", [1, 16])
+def test_lstm_kernel_input_widths_match_plain(card, k, h):
+    x, wx, wh, bias = _lstm_inputs(card, 2049, 30, h, k)
+    got = lstm_scan(x, wx, wh, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lstm_scan_ref(x, wx, wh, bias),
+                               rtol=1e-4, atol=1e-5)
+
+
+# The two routes run the same sums in the same order and the same gate
+# chain: the same bits at every hidden size the cluster route takes (at
+# H 1 the second block of a cluster owns no unit)
+@pytest.mark.parametrize("h", [1, 8, 31, 33, 124, CLUSTER_MAX_HIDDEN])
+def test_lstm_routes_bit_equal(card, h):
+    x, wx, wh, bias = _lstm_inputs(card, 300, 30, h)
+    outs = []
+    for which in ("cluster", "block"):
+        out = torch.empty((300, h), dtype=torch.float32, device=card)
+        _launch(which, x, wx, wh, bias, out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("n,d", [(365, 78624), (2048, 124), (496, 15),
@@ -405,6 +474,71 @@ def test_ssd_kernel_large_dt_and_padding_finite(card):
     torch.cuda.synchronize()
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     torch.testing.assert_close(st, st100, rtol=1e-4, atol=1e-4)
+
+
+# The fused route's calls (B, S, L, nh, hd, G, N) and the kernel of the
+# route each takes (kernels/ssd::fused_instance): the cells path's call,
+# batch 1 and 1025 around it, one chunk of the whole sequence, L 256 at the
+# widest (hpg, hd, N) route() still sends to the fused route, the widest
+# instance, and shapes of the generic kernel (hd 24 with N 12; hpg 2)
+FUSED_SHAPES = [((1024, 192, 64, 4, 8, 1, 8), "4x8x8"),
+                ((1, 192, 64, 4, 8, 1, 8), "4x8x8"),
+                ((1025, 192, 64, 4, 8, 1, 8), "4x8x8"),
+                ((3, 64, 64, 4, 8, 1, 8), "4x8x8"),
+                ((2, 512, 256, 4, 16, 1, 8), "4x16x8"),
+                ((2, 128, 32, 8, 32, 2, 16), "4x32x16"),
+                ((2, 128, 64, 4, 24, 1, 12), "generic"),
+                ((2, 256, 256, 2, 8, 1, 8), "generic")]
+
+
+@pytest.mark.parametrize("shape,instance", FUSED_SHAPES)
+def test_ssd_fused_route_matches_plain(card, shape, instance):
+    """One launch on the fused route, y within 1e-4 and the state within
+    1e-3 of the plain version (test_ssd_kernel_matches_plain's bounds)."""
+    B, S, L, nh, hd, G, N = shape
+    rng = np.random.default_rng(B + S + L + hd + N)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(card)
+
+    x, Bm, Cm = t(B, S, nh, hd), t(B, S, G, N), t(B, S, G, N)
+    dt = torch.nn.functional.softplus(t(B, S, nh)) * 0.5
+    A = -torch.exp(t(nh) * 0.3)
+    assert route(torch.float32, nh // G, hd, N, L) == "fused"
+    assert fused_instance(nh // G, hd, N, L) == instance
+    reset_launches()
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    assert ROUTES["ssd"] == {"fused": 1, "chunked": 0, "chunked_wgmma": 0}
+    assert LAUNCHES["ssd"] == 1
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, L)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("hd,N", [(8, 8), (24, 12)])
+def test_ssd_fused_large_dt_and_padding_match_plain(card, hd, N):
+    """dt = 40 (decays far below f32's range) and dt = 0 padding rows,
+    as test_ssd_kernel_large_dt_and_padding_finite has them, on an
+    instance and on the generic kernel: finite and within the fused
+    route's bounds of the plain version, one fused launch."""
+    rng = np.random.default_rng(hd + N)
+    x = torch.from_numpy(rng.normal(size=(2, 128, 4, hd)).astype(np.float32)
+                         ).to(card)
+    bm = torch.from_numpy(rng.normal(size=(2, 128, 1, N)).astype(np.float32)
+                          ).to(card)
+    dt = torch.full((2, 128, 4), 40.0, device=card)
+    dt[:, 100:] = 0.0
+    A = -torch.ones(4, device=card)
+    reset_launches()
+    y, st = ssd(x, dt, A, bm, bm, chunk=64)
+    torch.cuda.synchronize()
+    assert ROUTES["ssd"]["fused"] == 1 and LAUNCHES["ssd"] == 1
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yr, sr = ssd_ref(x, dt, A, bm, bm, 64)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sr, rtol=1e-3, atol=1e-3)
 
 
 def bf16_close(got, want):

@@ -22,7 +22,8 @@ from repro.kernels.qmm import quantize_weight as ref_quantize_weight
 from repro_torch.estimator.model import lstm_branch
 from repro_torch.kernels.lstm import (lstm_hidden, lstm_hidden_q, lstm_route,
                                       lstm_scan, lstm_scan_q, lstm_scan_q_ref,
-                                      lstm_scan_ref, qdot_ref)
+                                      lstm_scan_ref, lstm_scan_route,
+                                      qdot_ref)
 from repro_torch.kernels.qmm import quantize_weight
 from repro_torch.weights import params_from_reference
 
@@ -176,3 +177,13 @@ def test_lstm_scan_q_route_by_hidden(hidden, want):
     """The estimator's H 124 takes the tensor-core route; every hidden size
     the wrapper takes has a route."""
     assert lstm_route(hidden) == want
+
+
+@pytest.mark.parametrize("hidden,k_in,want", [
+    (124, 15, "cluster"),  # the estimator's: the fp32 path's scan
+    (1, 1, "cluster"), (128, 16, "cluster"), (129, 1, "block"),
+    (200, 15, "block"), (1024, 16, "block")])
+def test_lstm_scan_route_by_hidden(hidden, k_in, want):
+    """The estimator's H 124 takes the cluster route; every hidden size and
+    input width the wrapper takes has a route."""
+    assert lstm_scan_route(hidden, k_in) == want

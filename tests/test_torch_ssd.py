@@ -16,9 +16,9 @@ from repro.kernels.ssd import ssd as ref_ssd
 from repro.kernels.ssd import ssd_ref as ref_ssd_ref
 from repro.kernels.ssd import ssd_step as ref_ssd_step
 from repro_torch.kernels.pieces import split_bf16x3
-from repro_torch.kernels.ssd import (route, ssd, ssd_mixer, ssd_ref,
-                                     ssd_step)
-from test_torch_kernels_cuda import bf16_close
+from repro_torch.kernels.ssd import (fused_instance, route, ssd, ssd_mixer,
+                                     ssd_ref, ssd_step)
+from test_torch_kernels_cuda import FUSED_SHAPES, bf16_close
 
 # (S, L, nh, hd, G, N): the reference's test shapes, a chunk above 256
 # steps, and the SSD LM's 32 heads in one group at small widths
@@ -164,6 +164,19 @@ def test_wgmma_arithmetic_matches_plain(S, L, nh, hd, G, N, dt_scale):
     (torch.float32, 8, 8, 64, True, "fused")])
 def test_route_follows_dtype_and_shape(dtype, hd, N, L, aligned, want):
     assert route(dtype, 32 if hd == 64 else 4, hd, N, L, aligned) == want
+
+
+@pytest.mark.parametrize("shape,instance", FUSED_SHAPES + [
+    ((2, 96, 96, 2, 8, 1, 4), "generic"), ((3, 256, 256, 2, 8, 1, 8),
+                                           "generic")])
+def test_fused_route_and_instance(shape, instance):
+    """Every f32 shape of the card tests meant for the fused route takes it,
+    on the instance the C entry picks; an unaligned base takes the generic
+    kernel."""
+    B, S, L, nh, hd, G, N = shape
+    assert route(torch.float32, nh // G, hd, N, L) == "fused"
+    assert fused_instance(nh // G, hd, N, L) == instance
+    assert fused_instance(nh // G, hd, N, L, aligned=False) == "generic"
 
 
 def test_chunk_size_invariance():
