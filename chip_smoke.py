@@ -28,8 +28,8 @@ In order:
      versions, the runs with their launch counts (cold, then three warm),
      the whole fleet against the port on the CPU, the scheduler on the
      CPU's estimates on both devices, kernel timings (``scatter_reduce_``
-     as segsum's yardstick, and segsum's fixed cost: a launch at (1, 32) ->
-     1) and an ``e2e_cells`` line;
+     as segsum's yardstick; segsum behind one torch op, and at (1, 32) ->
+     1, a launch whose work is nothing) and an ``e2e_cells`` line;
   7. the split-computing path at VGG16's full width (224 px, 48 textured
      images): the forward at all 43 split points, dCor(input, activation)
      through the pairwise_dists kernel, the measured profile and PSO table,
@@ -77,8 +77,10 @@ In order:
      the int8 path's calls of each route, lstm_scan_q's with its design
      floor; lstm_scan's with the fp32 path's calls of each route, the
      block route's time on the same inputs and its design floor; segsum's
-     with its fixed cost, a launch at (1, 32) -> 1; flash_attention's with
-     its f32 kernel's time) and, last, ``{"ok": true, "device": {...}}``.
+     and featurize's with the path's calls of each route and the card's
+     launch floor as design floor (an empty kernel, timed in step 5);
+     flash_attention's with its f32 kernel's time) and, last, ``{"ok":
+     true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -97,7 +99,9 @@ result.
     python3 chip_smoke.py --scan       # the same for lstm_scan (each
                                        # route), the fused ssd route (the
                                        # cells call and every fused shape
-                                       # checked) and segsum's fixed cost
+                                       # checked), the launch floor, and
+                                       # segsum's and featurize's wrappers
+                                       # and generic routes beside it
 """
 from __future__ import annotations
 
@@ -158,6 +162,9 @@ LSTM_CLUSTER_BARRIER_CLK = 200
 # groups and chunks; each within 1e-4 (y) and 1e-3 (state)
 SSD_FUSED_SHAPES = [(CELLS_UES, 192, 64, 4, 8, 1, 8), (2, 64, 16, 4, 16, 1, 8),
                     (2, 128, 32, 8, 32, 2, 16), (2, 96, 96, 2, 8, 1, 4)]
+# segsum's timed launches beside the launch floor, (T, N, C) sums: the pf
+# scheduler's call a period, and one whose work is nothing
+SEGSUM_TIMED = [(1, CELLS_UES, CELLS_C), (1, 32, 1)]
 # the int8 LSTM on the card against its plain version: sigmoid/tanh ulps
 # can flip an int8 code of h (tests/test_torch_lstm.py states the same)
 Q_SCAN_ATOL, Q_SCAN_ROWS_OFF = 5e-3, 0.05
@@ -592,25 +599,143 @@ def ssd_fused_row(x, dt, A, Bm, Cm, L: int) -> dict:
             "host_ms": host, "plain_host_ms": phost}
 
 
-def segsum_fixed(dev, g) -> dict:
-    """segsum's fixed cost: a launch at (1, 32) -> 1 segment (sum), whose
-    work is nothing, timed as the path's (1, 1024) -> 4 launch beside it."""
-    from repro_torch.kernels.segsum import segment_reduce_batched
-    out = {}
-    for t_, n_, c_ in ((1, 32, 1), (1, 1024, 4)):
-        v = torch.rand((t_, n_), generator=g, device=dev)
-        ids = torch.randint(0, c_, (t_, n_), generator=g, device=dev,
+def torch_op(dev):
+    """One torch elementwise op of the kind the scheduler runs before each
+    segsum call (sim/sched.py: ``torch.clamp_min`` of the fleet's (1024,)
+    f32 PF averages)."""
+    x = torch.rand(CELLS_UES, device=dev) + 0.5
+    return lambda: torch.clamp_min(x, 1e-6)
+
+
+def timed_behind(fn, op) -> tuple[float, float, float]:
+    """(device ms a call back to back, device ms a call behind one call of
+    ``op`` each: the pair's time less ``op``'s alone, host ms a call)."""
+    ms, host = cuda_ms(fn, 400)
+    op_ms, _ = cuda_ms(op, 400)
+    pair_ms, _ = cuda_ms(lambda: (op(), fn()), 400)
+    return ms, pair_ms - op_ms, host
+
+
+def launch_floor(dev) -> dict:
+    """The card's launch floors: the kernel with an empty body
+    (``kernels/segsum::empty_launch``) launched plainly (``empty``, as
+    featurize is) and with programmatic dependent launch (``empty_pdl``, as
+    segsum's vec4 route is: its body the wait for the grid ahead), back to
+    back and behind one torch elementwise op each (``torch_op``), as
+    segsum runs on the cells path. No launch-sized kernel so launched can
+    beat its floor: the ``design_floor_ms`` of featurize's row and of
+    segsum's."""
+    from repro_torch.kernels.segsum import empty_launch
+    op, out = torch_op(dev), {}
+    for name, pdl in (("empty", False), ("empty_pdl", True)):
+        ms, behind, host = timed_behind(lambda: empty_launch(dev, pdl), op)
+        out.update({f"{name}_ms": ms, f"{name}_behind_op_ms": behind,
+                    f"{name}_host_ms": host})
+    return out
+
+
+def segsum_timed(dev, floor: dict, generic: bool = False) -> list:
+    """segsum (sum) at SEGSUM_TIMED through the public wrapper (the route
+    ``segsum_route`` picks) and, with ``generic``, on the generic route
+    (the first version) on the same inputs, each checked against plain
+    first: device ms back to back and behind one torch elementwise op, host
+    ms a call, and ms over the launch floor the route is launched with
+    (vec4: the empty kernel with programmatic dependent launch)."""
+    from repro_torch.kernels import segsum
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    op, rows = torch_op(dev), []
+    for t, n, c in SEGSUM_TIMED:
+        v = torch.rand((t, n), generator=g, device=dev)
+        ids = torch.randint(0, c, (t, n), generator=g, device=dev,
                             dtype=torch.int32)
-        out[f"{t_}x{n_}->{c_}"] = cuda_ms(
-            lambda: segment_reduce_batched(v, ids, c_), 200)[0]
-    return {"fixed_ms": out["1x32->1"], "shapes_ms": out}
+        want = segsum.segment_reduce_ref(v, ids, c)
+        route = segsum.segsum_route(n, c)
+        out = torch.empty((t, c), device=dev)
+
+        def wrapper():
+            return segsum.segment_reduce_batched(v, ids, c)
+
+        def first_version():
+            segsum._launch(v, ids, out, "sum", "generic")
+            return out
+
+        row = {"shape": [t, n, c], "op": "sum", "route": route}
+        for name, fn in [("wrapper", wrapper)] + (
+                [("generic", first_version)] if generic else []):
+            check(torch.allclose(fn(), want, rtol=1e-6, atol=0.0),
+                  f"segsum {name} within rtol 1e-6 of plain at {(t, n, c)}")
+            ms, behind, host = timed_behind(fn, op)
+            which = route if name == "wrapper" else name
+            over = ms - floor["empty_pdl_ms" if which == "vec4"
+                              else "empty_ms"]
+            times = {"ms": ms, "behind_op_ms": behind, "host_ms": host,
+                     "over_floor_ms": over}
+            if name == "wrapper":
+                row.update(times)
+            else:
+                row[name] = times
+        rows.append(row)
+    return rows
+
+
+def path_slab(dev):
+    """The fp32 path's featurize input: one chunk's (128, 45, 15) KPM trace
+    of the smoke's episode (its IQ, drawn after the KPMs, left out), and
+    the normalisation's center and scale."""
+    from repro_torch.channel import kpm
+    from repro_torch.channel import scenarios as sc
+    names = np.asarray(sc.SCENARIOS)[np.arange(N_UES) % len(sc.SCENARIOS)]
+    ep = sc.gen_episode_batch(names, T_PERIODS, np.random.default_rng(SEED),
+                              include_iq=False)
+    slab = np.ascontiguousarray(ep.kpms[:, :T_PERIODS + sc.WINDOW - 1])
+    return (torch.from_numpy(slab).to(dev),
+            torch.from_numpy(kpm.KPM_CENTER).to(dev),
+            torch.from_numpy(kpm.KPM_SCALE).to(dev))
+
+
+def featurize_timed(dev, floor: dict) -> dict:
+    """featurize at the fp32 path's slab (``path_slab``) through the public
+    wrapper (the route ``plan`` picks) and on its generic route (the first
+    version), each bit-equal to plain first, and a torch fill of its
+    output's bytes (the store side alone): device ms, host ms and ms over
+    the plain launch floor, beside the byte bound."""
+    from repro_torch.channel.scenarios import WINDOW
+    from repro_torch.kernels import featurize as feat
+    slab, center, scale = path_slab(dev)
+    n, length, k = slab.shape
+    want = feat.featurize_ref(slab, center, scale, WINDOW)
+    out = torch.empty_like(want)
+    b_ms, by = bound(4 * (slab.numel() + 2 * k + out.numel()),
+                     2 * out.numel())
+    fz = {"shape": [n, length, k], "route": feat.plan(length, k),
+          "bound_ms": b_ms, "bound_by": by}
+
+    def wrapper():
+        return feat.featurize(slab, center, scale, WINDOW)
+
+    def first_version():
+        feat._launch(slab, center, scale, WINDOW, out, "generic")
+        return out
+
+    for name, fn in (("wrapper", wrapper), ("generic", first_version)):
+        out.zero_()
+        check(torch.equal(fn(), want),
+              f"featurize {name} bit-equal to plain at the path's slab")
+        ms, host = cuda_ms(fn, 400)
+        fz[name] = {"ms": ms, "host_ms": host,
+                    "over_floor_ms": ms - floor["empty_ms"]}
+    ms, _ = cuda_ms(lambda: out.fill_(1.0), 400)
+    fz["fill"] = {"ms": ms, "over_floor_ms": ms - floor["empty_ms"]}
+    return fz
 
 
 def scan_kernels(dev, smi: str) -> dict:
     """``--scan``: lstm_scan at the fp32 path's (2048, 30, 15), H 124, on
     seeded random windows and the estimator's seeded weights (lstm_row:
     each route, cuDNN's LSTM beside them); the fused ssd route at every
-    shape of SSD_FUSED_SHAPES (ssd_fused_row); segsum's fixed cost."""
+    shape of SSD_FUSED_SHAPES (ssd_fused_row); the card's launch floor
+    (``launch_floor``), and segsum's and featurize's wrappers and generic
+    routes beside it (``segsum_timed``, ``featurize_timed``)."""
     from repro_torch.channel.scenarios import WINDOW
     from repro_torch.estimator.model import EstimatorConfig, init_estimator
     e = EstimatorConfig()
@@ -627,10 +752,14 @@ def scan_kernels(dev, smi: str) -> dict:
         srows.append(ssd_fused_row(*ssd_inputs(g, dev, B, S, nh, hd, G, N),
                                    L))
         print(json.dumps({"ssd_fused": srows[-1]}))
-    seg = segsum_fixed(dev, g)
+    floor = launch_floor(dev)
+    print(json.dumps({"launch_floor": floor}))
+    seg = segsum_timed(dev, floor, generic=True)
     print(json.dumps({"segsum": seg}))
-    return {"lstm_scan": lrow, "ssd_fused": srows, "segsum": seg,
-            "card": smi}
+    fz = featurize_timed(dev, floor)
+    print(json.dumps({"featurize": fz}))
+    return {"lstm_scan": lrow, "ssd_fused": srows, "launch_floor": floor,
+            "segsum": seg, "featurize": fz, "card": smi}
 
 
 def vgg_boundary_shapes(m: int) -> list:
@@ -761,14 +890,15 @@ def int8_kernels(dev, smi: str) -> dict:
             "lstm_scan_q": lrow, "card": smi}
 
 
-def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
+def cells_path(dev, prof, table, cfg, fixed, argv, floor: dict) -> list:
     """The multi-cell, PRB-scheduled fleet driven by the recurrent SSM
     estimator at the repo's cells sweep size (benchmarks/fleet.py
     run_cells: 1024 UEs over 4 cells, T = 100): the segsum and ssd kernels
     against their plain versions, the path's runs with their launch
     counts, the whole fleet against the port on the CPU, timings and the
-    ``e2e_cells`` line. Returns segsum's row of the kernels line and the
-    numbers of ssd's fused route there."""
+    ``e2e_cells`` line. Returns segsum's row of the kernels line (beside
+    the launch floor ``floor``) and the numbers of ssd's fused route
+    there."""
     from repro_torch.channel import scenarios as sc
     from repro_torch.estimator.ssm import (SSMConfig, episode_features,
                                            init_ssm, reduce_forecasts,
@@ -869,6 +999,9 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     res, first_s, launches = run()
     check(ROUTES["ssd"] == {"fused": 1, "chunked": 0, "chunked_wgmma": 0},
           f"the cells run's ssd call takes the fused route ({ROUTES})")
+    seg_routes = dict(ROUTES["segsum"])
+    check(seg_routes == {"vec4": T, "generic": 0},
+          f"the cells run's segsum calls take the vec4 route ({seg_routes})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     warm_s = []
     for _ in range(3):
@@ -891,6 +1024,9 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
     res_mx, _, launches_mx = run("maxsinr")
     check(launches_mx["segsum"] == 2 * T and launches_mx["ssd"] == 1,
           f"a maxsinr run launches segsum {2 * T} times ({launches_mx})")
+    seg_routes_mx = dict(ROUTES["segsum"])
+    check(seg_routes_mx == {"vec4": 2 * T, "generic": 0}, "the maxsinr run's "
+          f"segsum calls take the vec4 route ({seg_routes_mx})")
 
     # the whole fleet through the port on the CPU: shares couple every UE
     # of a cell, so no subset is the same computation
@@ -1001,7 +1137,7 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
                 "plain_host_ms": phost, "library_host_ms": lhost,
                 "library_max_abs_err": lib_err})
     main_row = seg_rows[0]  # sum at (1, 1024): the pf path's launch
-    seg_fixed = segsum_fixed(dev, g)
+    path_t, fixed_t = segsum_timed(dev, floor)  # SEGSUM_TIMED's two
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
@@ -1028,9 +1164,16 @@ def cells_path(dev, prof, table, cfg, fixed, argv) -> list:
          "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
          "library_ms": main_row["library_ms"], "host_ms": main_row["host_ms"],
          "plain_host_ms": main_row["plain_host_ms"],
-         "fixed_ms": seg_fixed["fixed_ms"], "fixed": seg_fixed,
+         "design_floor_ms": floor["empty_pdl_ms"], "floor": floor,
+         "behind_op_ms": path_t["behind_op_ms"],
+         "fixed_ms": fixed_t["ms"], "fixed": fixed_t,
+         "routes": {"pf": seg_routes, "maxsinr": seg_routes_mx},
          "per": f"one launch at the pf scheduler's shape (1, {n}) -> {C}, "
-               f"{T} a run; shapes: each op at both path shapes",
+               f"{T} a run; shapes: each op at both path shapes; design "
+               "floor: an empty kernel launched as the vec4 route is (with "
+               "programmatic dependent launch), back to back (floor: also "
+               "plainly, and behind one torch op); fixed: a launch at (1, "
+               "32) -> 1",
          "shapes": seg_rows},
         {**ssd_rows[0], "route": "fused",
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -2169,7 +2312,8 @@ def main(argv: list[str]) -> int:
     if "--int8" in argv:  # quantize's and lstm_scan_q's checks and times
         print(json.dumps({"int8": int8_kernels(dev, smi)}))
         return 0
-    if "--scan" in argv:  # lstm_scan's, the fused ssd's and segsum's
+    if "--scan" in argv:  # lstm_scan's, the fused ssd's, the launch
+        # floor and the launch-sized kernels'
         print(json.dumps({"scan": scan_kernels(dev, smi)}))
         return 0
     if "--dcor" in argv:  # pairwise_dists' checks and profile-run times
@@ -2287,12 +2431,15 @@ def main(argv: list[str]) -> int:
     cold_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     lstm_routes = dict(ROUTES["lstm_scan"])
+    feat_routes = dict(ROUTES["featurize"])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for name in ("featurize", "lstm_scan"):
         check(launches[name] > 0,
               f"{name} launched on the main path ({launches[name]})")
     check(lstm_routes["cluster"] == launches["lstm_scan"],
           f"the fp32 path's scans take the cluster route ({lstm_routes})")
+    check(feat_routes["staged"] == launches["featurize"],
+          f"the fp32 path's featurize takes the staged route ({feat_routes})")
     check(launches["quantize"] == launches["qmm"]
           == launches["lstm_scan_q"] == 0, "the fp32 path runs no int8")
     check(res.est_tp.shape == (N_UES, T_PERIODS), "estimate shape")
@@ -2349,6 +2496,8 @@ def main(argv: list[str]) -> int:
         check(launches8[name] > 0,
               f"{name} launched on the int8 path ({launches8[name]})")
     check(launches8["lstm_scan"] == 0, "the int8 path runs no fp32 scan")
+    check(routes8["featurize"]["staged"] == launches8["featurize"],
+          f"the int8 path's featurize takes the staged route ({routes8})")
     check(routes8["quantize"]["two_pass"] == 0
           and routes8["lstm_scan_q"]["mma"] == launches8["lstm_scan_q"],
           f"the int8 path's quantize reads each value once and its scan "
@@ -2386,7 +2535,9 @@ def main(argv: list[str]) -> int:
           f"{res.splits.size}; peak device memory {peak8_gib:.2f} GiB; "
           f"first run {cold8_s:.3f} s")
 
-    # 5. timings
+    # 5. timings, beside the card's launch floor
+    floor = launch_floor(dev)
+    print(json.dumps({"launch_floor": floor}))
     feat_ms, feat_host = cuda_ms(
         lambda: featurize(slab, center, scale, W), 100)
     feat_plain, feat_plain_host = cuda_ms(
@@ -2403,8 +2554,10 @@ def main(argv: list[str]) -> int:
          "replaces": "src/repro/kernels/featurize/kernel.py:40",
          "launches": launches["featurize"], "max_abs_err": 0.0,
          "ms": feat_ms, "plain_ms": feat_plain, "bound_ms": feat_bound,
-         "bound_by": feat_by, "library_ms": None, "host_ms": feat_host,
-         "plain_host_ms": feat_plain_host},
+         "bound_by": feat_by, "design_floor_ms": floor["empty_ms"],
+         "library_ms": None, "host_ms": feat_host,
+         "plain_host_ms": feat_plain_host,
+         "routes": {"fp32": feat_routes, "int8": routes8["featurize"]}},
         {"name": "lstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lstm_scan.cu",
          "replaces": "src/repro/kernels/lstm/kernel.py:92",
@@ -2501,7 +2654,8 @@ def main(argv: list[str]) -> int:
         "peak_device_gib": peak8_gib, "rmse_vs_fp32_mbps": rmse8}}))
 
     # 6. the multi-cell scheduled fleet on the recurrent SSM estimator
-    seg_row, ssd_fused = cells_path(dev, prof, table, cfg, fixed, argv)
+    seg_row, ssd_fused = cells_path(dev, prof, table, cfg, fixed, argv,
+                                    floor)
     check(ssd_fused["route"] == "fused", "the cells path's ssd call takes "
           f"the fused route ({ssd_fused['route']})")
     kernels.append(seg_row)

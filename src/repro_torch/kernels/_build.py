@@ -44,8 +44,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C entry point -> argtypes; each returns cudaGetLastError() as an int
 _SIGNATURES = {
-    # (x, center, scale, out, n, length, k, window, stream)
-    "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, center, scale, out, n, length, k, window, route, stream)
+    "repro_featurize_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (x, wx, wh, b, h_out, batch, steps, k, hidden, stream)
     "repro_lstm_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_lstm_scan_f32_cluster": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -64,8 +64,10 @@ _SIGNATURES = {
                              _P],
     "repro_lstm_scan_q_s8_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
-    # (values, ids, out, t, n, c, op, stream)
-    "repro_segsum_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # (values, ids, out, t, n, c, op, route, stream) and (stream)
+    "repro_segsum_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_empty_launch": [_P],
+    "repro_empty_launch_pdl": [_P],
     # (x, dt, a, bm, cm, y, state, batch, seqlen, nh, hd, groups, n, chunk,
     #  stream)
     "repro_ssd_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -97,7 +99,9 @@ ROUTES = {"ssd": {"fused": 0, "chunked": 0, "chunked_wgmma": 0},
           "quantize": {"warp": 0, "warp_scalar": 0, "block": 0,
                        "cluster": 0, "two_pass": 0},
           "lstm_scan_q": {"mma": 0, "dp4a": 0},
-          "lstm_scan": {"cluster": 0, "block": 0}}
+          "lstm_scan": {"cluster": 0, "block": 0},
+          "segsum": {"vec4": 0, "generic": 0},
+          "featurize": {"staged": 0, "generic": 0}}
 
 _lock = threading.Lock()
 _lib = None

@@ -1,6 +1,7 @@
 """Fused KPM-window featurize: normalise the raw trace and cut windows.
 
-``featurize`` is the wrapper of the CUDA kernel ``csrc/featurize.cu``;
+``featurize`` is the wrapper of the CUDA kernel ``csrc/featurize.cu``
+(route ``staged`` or ``generic``, picked by ``plan``);
 ``featurize_ref`` is its plain PyTorch version, which the wrapper runs for
 tensors on the CPU and the tests hold the kernel to.
 ``kpm_feature_windows`` is the dispatch the fleet engine calls.
@@ -12,6 +13,21 @@ import torch
 from repro_torch.kernels import _build
 
 F32 = torch.float32
+# the routes of csrc/featurize.cu and their codes in its C entry point
+ROUTE_IDS = {"generic": 0, "staged": 1}
+# trace values a block of the staged kernel holds in shared memory
+# (csrc/featurize.cu kStageMax: 256 threads x 12)
+STAGE_MAX = 3072
+
+
+def plan(length: int, k: int) -> str:
+    """The kernel a card runs for a UE's (length, k) trace:
+
+    - "staged": traces of up to STAGE_MAX values, a block a UE that
+      normalises each value once in shared memory and writes the UE's
+      windows with 16-byte stores;
+    - "generic": longer traces, the first version (a block a window)."""
+    return "staged" if length * k <= STAGE_MAX else "generic"
 
 
 def featurize_ref(kpms, center, scale, window: int) -> torch.Tensor:
@@ -66,15 +82,23 @@ def featurize(kpms: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
                       device=kpms.device)
     if out.numel() == 0:
         return out
+    _launch(kpms, center, scale, window, out, plan(length, k))
+    return out
+
+
+def _launch(kpms, center, scale, window: int, out, which: str) -> None:
+    """One launch of featurize's route ``which`` on checked inputs,
+    counted."""
+    n, length, k = kpms.shape
     lib = _build.library()
-    with torch.cuda.device(kpms.device):
+    ctx, stream = _build.device_stream(kpms.device.index)
+    with ctx:
         rc = lib.repro_featurize_f32(
             kpms.data_ptr(), center.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), n, length, k, window,
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), n, length, k, window, ROUTE_IDS[which], stream)
     _build.check_launch(rc, "featurize")
     _build.LAUNCHES["featurize"] += 1
-    return out
+    _build.ROUTES["featurize"][which] += 1
 
 
 def kpm_feature_windows(kpms: torch.Tensor, center, scale,

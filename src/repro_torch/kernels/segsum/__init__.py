@@ -6,7 +6,8 @@ every report period) and the per-cell offered load behind the
 interference coupling (``sim.cells.cell_load``).
 
 ``segment_reduce_batched`` is the wrapper of the CUDA kernel
-``csrc/segsum.cu``; ``segment_reduce_ref`` is its plain PyTorch version:
+``csrc/segsum.cu`` (route ``vec4`` or ``generic``, picked by
+``segsum_route``); ``segment_reduce_ref`` is its plain PyTorch version:
 the TPU kernel's one-hot compare-and-reduce, which the wrapper runs for
 tensors on the CPU and the tests hold the kernel to. ``segment_reduce`` is
 the dispatch the scheduler and the cells layer call (the reference's
@@ -25,6 +26,26 @@ from repro_torch.kernels import _build
 F32 = torch.float32
 I32 = torch.int32
 OPS = ("sum", "max")
+# the routes of csrc/segsum.cu and their codes in its C entry point; rows
+# the vec4 route takes: up to VEC4_MAX_N values in 16-byte vectors (a warp
+# holds 256, a row has at most 16 warps), up to VEC4_MAX_SEGMENTS segments
+ROUTE_IDS = {"generic": 0, "vec4": 1}
+VEC4_MAX_N = 4096
+VEC4_MAX_SEGMENTS = 8
+
+
+def segsum_route(n: int, c: int, aligned: bool = True) -> str:
+    """The kernel a card runs for rows of ``n`` values into ``c`` segments:
+
+    - "vec4": 1 <= c <= VEC4_MAX_SEGMENTS, 1 <= n <= VEC4_MAX_N with n a
+      multiple of 4, and (``aligned``) values and ids on the 16-byte grid:
+      a compile-time instance for c, each lane's 16-byte loads all issued
+      before their use;
+    - "generic": the rest, the first version (a block a row)."""
+    if (aligned and 1 <= c <= VEC4_MAX_SEGMENTS and 1 <= n <= VEC4_MAX_N
+            and n % 4 == 0):
+        return "vec4"
+    return "generic"
 
 
 def _check_op(op: str) -> None:
@@ -83,15 +104,41 @@ def segment_reduce_batched(values: torch.Tensor, seg_ids: torch.Tensor,
     out = torch.empty((t, n_segments), dtype=F32, device=values.device)
     if t == 0:
         return out
+    which = segsum_route(n, n_segments, values.data_ptr() % 16 == 0
+                         and seg_ids.data_ptr() % 16 == 0)
+    _launch(values, seg_ids, out, op, which)
+    return out
+
+
+def _launch(values, seg_ids, out, op: str, which: str) -> None:
+    """One launch of segsum's route ``which`` on checked inputs, counted
+    (the vec4 route with programmatic dependent launch)."""
+    (t, n), c = values.shape, out.shape[1]
     lib = _build.library()
-    with torch.cuda.device(values.device):
+    ctx, stream = _build.device_stream(values.device.index)
+    with ctx:
         rc = lib.repro_segsum_f32(
-            values.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), t, n,
-            n_segments, OPS.index(op),
-            torch.cuda.current_stream().cuda_stream)
+            values.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), t, n, c,
+            OPS.index(op), ROUTE_IDS[which], stream)
     _build.check_launch(rc, "segsum")
     _build.LAUNCHES["segsum"] += 1
-    return out
+    _build.ROUTES["segsum"][which] += 1
+
+
+def empty_launch(device, pdl: bool = False) -> None:
+    """Launch the kernel with an empty body on ``device``'s current
+    stream: the card's launch floor, against which segsum's and
+    featurize's times are read; ``pdl`` as the vec4 route is launched, its
+    body the wait for the previous grid. Not counted: no path runs it."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    lib = _build.library()
+    entry = lib.repro_empty_launch_pdl if pdl else lib.repro_empty_launch
+    ctx, stream = _build.device_stream(index)
+    with ctx:
+        rc = entry(stream)
+    _build.check_launch(rc, "empty")
 
 
 def segment_reduce(values, seg_ids, n_segments: int, *, op: str = "sum",

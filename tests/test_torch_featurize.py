@@ -10,8 +10,9 @@ from repro.channel import kpm as kpm_ref
 from repro.channel import scenarios as sc_ref
 from repro.kernels.featurize import kpm_feature_windows as ref_windows
 from repro_torch.channel import kpm as kpm_t
-from repro_torch.kernels.featurize import (featurize, featurize_ref,
-                                           kpm_feature_windows)
+from repro_torch.kernels.featurize import (STAGE_MAX, featurize,
+                                           featurize_ref,
+                                           kpm_feature_windows, plan)
 
 W = sc_ref.WINDOW
 
@@ -84,4 +85,51 @@ def test_wrapper_rejects_malformed_input(bad):
     else:
         x = x[0]
     with pytest.raises((TypeError, ValueError)):
+        featurize(x, center, scale, W)
+
+
+@pytest.mark.parametrize("length,k,want", [
+    (45, 15, "staged"), (3 + W - 1, 15, "staged"), (91, 15, "staged"),
+    (STAGE_MAX // 15, 15, "staged"), (STAGE_MAX, 1, "staged"),
+    (STAGE_MAX // 3, 3, "staged"),
+    # past the budget: the first version
+    (STAGE_MAX // 15 + 1, 15, "generic"), (400, 15, "generic"),
+    (STAGE_MAX + 1, 1, "generic"), (STAGE_MAX // 3 + 1, 3, "generic"),
+    (3000, 2, "generic")])
+def test_plan_stages_traces_within_the_budget(length, k, want):
+    """A UE's (L, K) trace of up to STAGE_MAX values is staged in shared
+    memory by one block; a longer one takes the first version."""
+    assert plan(length, k) == want
+    assert (want == "staged") == (length * k <= STAGE_MAX)
+
+
+@pytest.mark.parametrize("n,length,k,window", [
+    (128, 45, 15, W), (3, 40, 3, W), (2, 300, 15, W), (4, 9, 5, 1)])
+def test_wrapper_runs_plain_version_on_cpu_at_route_shapes(n, length, k,
+                                                           window):
+    """On CPU tensors the wrapper is the plain version for traces of
+    either route, outputs on and off the 16-byte grid."""
+    rng = np.random.default_rng(n + length)
+    x = torch.from_numpy((rng.normal(size=(n, length, k)) * 50)
+                         .astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=k).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 9.0, k).astype(np.float32))
+    got = featurize(x, c, s, window)
+    assert got.shape == (n, length - window + 1, window, k)
+    assert torch.equal(got, featurize_ref(x, c, s, window))
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("center_dtype", "center must be float32"),
+    ("scale_device", "scale is on"), ("device", "no featurize kernel")])
+def test_wrapper_raises_on_constants_and_devices(bad, match):
+    center, scale = _consts()
+    x = torch.zeros((2, W + 3, 15))
+    if bad == "center_dtype":
+        center = center.double()
+    elif bad == "scale_device":
+        scale = scale.to("meta")
+    else:
+        x, center, scale = x.to("meta"), center.to("meta"), scale.to("meta")
+    with pytest.raises((TypeError, ValueError), match=match):
         featurize(x, center, scale, W)

@@ -16,7 +16,10 @@ from repro_torch.estimator.ssm import SSMConfig, init_ssm
 from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
 from repro_torch.kernels.dcor import (dcor_kernel, pairwise_dists,
                                       pairwise_dists_ref)
-from repro_torch.kernels.featurize import featurize, featurize_ref
+from repro_torch.kernels.featurize import (STAGE_MAX, featurize,
+                                           featurize_ref)
+from repro_torch.kernels.featurize import plan as featurize_plan
+from repro_torch.kernels.featurize import _launch as _featurize_launch
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.lstm import (lstm_scan, lstm_scan_q,
@@ -31,8 +34,9 @@ from repro_torch.kernels.quant import (BLOCK_MAX_BYTES, CLUSTER_MAX,
                                        CLUSTER_SLICE_MAX, SCALAR_MAX,
                                        WARP_MAX_BYTES, quantize, quantize_ref)
 from repro_torch.kernels.quant import route as quant_route
-from repro_torch.kernels.segsum import (segment_reduce_batched,
-                                        segment_reduce_ref)
+from repro_torch.kernels.segsum import (empty_launch, segment_reduce_batched,
+                                        segment_reduce_ref, segsum_route)
+from repro_torch.kernels.segsum import _launch as _segsum_launch
 from repro_torch.kernels.ssd import fused_instance, route, ssd, ssd_ref
 from repro_torch.configs import get_config
 from repro_torch.core import boundary
@@ -56,16 +60,50 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,length", [(128, 45), (3, 30), (7, 91)])
-def test_featurize_kernel_bit_equal(card, n, length):
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy((rng.normal(size=(n, length, 15)) * 50)
+def _featurize_case(card, n, length, k, seed):
+    """x (n, length, k) and the KPM center and scale at K 15, random ones
+    at another K."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(n, length, k)) * 50)
                          .astype(np.float32)).to(card)
-    c = torch.from_numpy(kpm.KPM_CENTER).to(card)
-    s = torch.from_numpy(kpm.KPM_SCALE).to(card)
-    got = featurize(x, c, s, sc.WINDOW)
+    if k == 15:
+        c, s = kpm.KPM_CENTER, kpm.KPM_SCALE
+    else:
+        c = rng.normal(size=k).astype(np.float32)
+        s = rng.uniform(0.5, 9.0, k).astype(np.float32)
+    return x, torch.from_numpy(c).to(card), torch.from_numpy(s).to(card)
+
+
+# the path's slab, small traces, a K whose windows and UEs fall off the
+# 16-byte grid (15 x 3 = 45 floats a window, 11 windows a UE), one-step
+# windows, the largest staged traces (3072 values), and traces past the
+# stage budget (the first version)
+@pytest.mark.parametrize("n,length,k,window", [
+    (128, 45, 15, 30), (3, 30, 15, 30), (7, 91, 15, 30), (5, 25, 3, 15),
+    (6, 9, 5, 1), (1, 33, 1, 30), (3, STAGE_MAX // 15, 15, 30),
+    (2, STAGE_MAX, 1, 7), (2, STAGE_MAX // 15 + 1, 15, 30),
+    (3, STAGE_MAX + 5, 1, 30), (2, 400, 7, 30), (2, 300, 15, 210)])
+def test_featurize_kernel_bit_equal(card, n, length, k, window):
+    x, c, s = _featurize_case(card, n, length, k, n)
+    reset_launches()
+    got = featurize(x, c, s, window)
     torch.cuda.synchronize()
-    assert torch.equal(got, featurize_ref(x, c, s, sc.WINDOW))
+    which = featurize_plan(length, k)
+    assert LAUNCHES["featurize"] == 1 and ROUTES["featurize"][which] == 1
+    assert torch.equal(got, featurize_ref(x, c, s, window))
+
+
+@pytest.mark.parametrize("which", ["staged", "generic"])
+@pytest.mark.parametrize("n,length,k", [(128, 45, 15), (5, 25, 3)])
+def test_featurize_routes_bit_equal(card, which, n, length, k):
+    """Each route on the same staged-size traces, into an output filled
+    with NaN first: every value written, bit-equal to plain."""
+    x, c, s = _featurize_case(card, n, length, k, length)
+    want = featurize_ref(x, c, s, 15)
+    out = torch.full_like(want, float("nan"))
+    _featurize_launch(x, c, s, 15, out, which)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("b,h", [(2048, 124), (37, 124), (5, 8), (16, 31)])
@@ -415,24 +453,91 @@ def test_int8_slice_on_card_matches_cpu(card):
                                atol=0.05)
 
 
-# max is exact in any order; a sum of 1024 values in another order is
-# within 1e-6 relative (atol for the random-sign case's cancellation)
-@pytest.mark.parametrize("op", ["sum", "max"])
-@pytest.mark.parametrize("t,n,c", [(1, 1024, 4), (130, 1024, 4),
-                                   (5, 200, 7), (3, 33, 1), (2, 3000, 19)])
-def test_segsum_kernel_matches_plain(card, op, t, n, c):
-    rng = np.random.default_rng(t * n + c)
+def _segsum_case(card, t, n, c, seed):
+    """(t, n) values and ids in [-2, c + 2) (outside [0, c) included), the
+    middle row's ids all outside where t >= 3 (every segment empty)."""
+    rng = np.random.default_rng(seed)
     v = torch.from_numpy(rng.normal(size=(t, n)).astype(np.float32)).to(card)
-    g = torch.from_numpy(rng.integers(-2, c + 2, (t, n)).astype(np.int32)
-                         ).to(card)  # ids outside [0, c) included
-    got = segment_reduce_batched(v, g, c, op=op)
-    torch.cuda.synchronize()
-    want = segment_reduce_ref(v, g, c, op=op)
+    g = rng.integers(-2, c + 2, (t, n)).astype(np.int32)
+    if t >= 3:
+        g[t // 2] = rng.choice([-1, c], n)
+    return v, torch.from_numpy(g).to(card)
+
+
+def _segsum_held(got, again, want, op):
+    """max bit-equal; a sum within rtol 1e-6 of plain (atol for the random
+    signs' cancellation) and the same bits on a second call."""
     if op == "max":
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
-        assert torch.equal(got, segment_reduce_batched(v, g, c, op=op))
+        assert torch.equal(got, again)
+
+
+# max is exact in any order; a sum of 1024 values in another order is
+# within 1e-6 relative (atol for the random-sign case's cancellation).
+# Shapes: the paths' (1, 1024) and (130, 1024); each vec4 instance the
+# paths run (C 4, 5) and its edges (1, 8) and the first generic C (9) at
+# 4 warps a row (1024), 16 (4096), past the route (4100) and off a
+# multiple of 4 (33); rows that share a block (T past the card's SMs: 10
+# rows of 1 warp, 4 of 4, 2 of 8), a row's last warp part-filled (3072:
+# 12 of 16 warps), one vector (4); other generic shapes
+SEGSUM_SHAPES = ([(1, 1024, 4), (130, 1024, 4), (5, 200, 7), (2, 3000, 19),
+                  (1400, 256, 3), (600, 1024, 4), (300, 2048, 5),
+                  (200, 3072, 3), (400, 4096, 8), (1, 4, 1)]
+                 + [(3, n, c) for c in (1, 4, 5, 8, 9)
+                    for n in (1024, 4096, 4100, 33)])
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("t,n,c", SEGSUM_SHAPES)
+def test_segsum_kernel_matches_plain(card, op, t, n, c):
+    v, g = _segsum_case(card, t, n, c, t * n + c)
+    reset_launches()
+    got = segment_reduce_batched(v, g, c, op=op)
+    torch.cuda.synchronize()
+    assert LAUNCHES["segsum"] == 1
+    assert ROUTES["segsum"][segsum_route(n, c)] == 1
+    if t >= 3:
+        assert (got[t // 2] == (0.0 if op == "sum" else float("-inf"))).all()
+    _segsum_held(got, segment_reduce_batched(v, g, c, op=op),
+                 segment_reduce_ref(v, g, c, op=op), op)
+
+
+def test_segsum_off_the_16_byte_grid_takes_generic(card):
+    """Values a view 4 bytes past an allocation: the generic route."""
+    v, g = _segsum_case(card, 1, 1028, 4, 7)
+    v1, g1 = v[0, 1:1025][None], g[0, 1:1025][None]
+    reset_launches()
+    got = segment_reduce_batched(v1, g1, 4)
+    torch.cuda.synchronize()
+    assert ROUTES["segsum"] == {"vec4": 0, "generic": 1}
+    _segsum_held(got, segment_reduce_batched(v1, g1, 4),
+                 segment_reduce_ref(v1, g1, 4), "sum")
+
+
+@pytest.mark.parametrize("which", ["vec4", "generic"])
+def test_segsum_vec4_launches_behind_torch_ops(card, which):
+    """Each route launched right behind the torch ops that write its
+    inputs (vec4 with programmatic dependent launch): it reads what they
+    wrote."""
+    v, g = _segsum_case(card, 1, 1024, 4, 11)
+    for i in range(20):
+        w = torch.clamp_min(v * (i + 1), -1.0)
+        ids = torch.where(g >= 0, g, 4)
+        out = torch.empty((1, 4), device=card)
+        _segsum_launch(w, ids, out, "sum", which)
+        torch.testing.assert_close(out, segment_reduce_ref(w, ids, 4),
+                                   rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("pdl", [False, True])
+def test_empty_launch_runs(card, pdl):
+    reset_launches()
+    for _ in range(3):
+        empty_launch(card, pdl)
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in LAUNCHES.values())
 
 
 @pytest.mark.parametrize("B,S,L,nh,hd,G,N", [

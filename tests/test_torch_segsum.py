@@ -9,9 +9,10 @@ import torch
 
 from repro.kernels.segsum import segment_reduce as ref_segment_reduce
 from repro.sim import cells as cells_ref
-from repro_torch.kernels.segsum import (segment_reduce,
+from repro_torch.kernels.segsum import (VEC4_MAX_N, VEC4_MAX_SEGMENTS,
+                                        segment_reduce,
                                         segment_reduce_batched,
-                                        segment_reduce_ref)
+                                        segment_reduce_ref, segsum_route)
 from repro_torch.sim import cells as cells_t
 
 
@@ -121,6 +122,53 @@ def test_wrapper_rejects_malformed_input(bad):
         kw["op"] = "mean"
     with pytest.raises((TypeError, ValueError)):
         segment_reduce_batched(v, g, 4, **kw)
+
+
+@pytest.mark.parametrize("c", range(1, VEC4_MAX_SEGMENTS + 1))
+def test_route_takes_vec4_instances(c):
+    """Every C of 1-8 has an instance for rows of a multiple of 4 values
+    up to 4096: the paths' C 4 and 5 at N 1024 among them."""
+    for n in (4, 32, 1024, 1028, 4092, VEC4_MAX_N):
+        assert segsum_route(n, c) == "vec4"
+
+
+@pytest.mark.parametrize("n,c,aligned", [
+    (1024, VEC4_MAX_SEGMENTS + 1, True), (VEC4_MAX_N + 4, 4, True),
+    (1025, 4, True), (33, 1, True), (1022, 8, True), (0, 4, True),
+    (1024, 4, False), (4096, 1, False)])
+def test_route_generic_past_each_edge(n, c, aligned):
+    """Past 8 segments, past 4096 values, off a multiple of 4, with no
+    values or off the 16-byte grid: the first version."""
+    assert segsum_route(n, c, aligned) == "generic"
+
+
+@pytest.mark.parametrize("t,n,c", [(1, 1024, 4), (130, 1024, 4),
+                                   (2, 4100, 9), (3, 33, 1)])
+def test_wrapper_runs_plain_version_on_cpu_at_route_shapes(t, n, c):
+    """On CPU tensors the wrapper is the plain version on either side of
+    the route's edges, ids outside [0, C) included."""
+    v, g, _ = _case(t, n, c, 4, False, lo=-2, hi=c + 2)
+    tv, tg = torch.from_numpy(v), torch.from_numpy(g)
+    for op in ("sum", "max"):
+        assert torch.equal(segment_reduce_batched(tv, tg, c, op=op),
+                           segment_reduce_ref(tv, tg, c, op=op))
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("segments", "n_segments"), ("device", "no segsum kernel"),
+    ("ids_device", "seg_ids are on")])
+def test_wrapper_raises_on_segments_and_devices(bad, match):
+    v = torch.zeros((3, 8))
+    g = torch.zeros((3, 8), dtype=torch.int32)
+    c = 4
+    if bad == "segments":
+        c = 0
+    elif bad == "device":
+        v, g = v.to("meta"), g.to("meta")
+    else:
+        g = g.to("meta")
+    with pytest.raises(ValueError, match=match):
+        segment_reduce_batched(v, g, c)
 
 
 @pytest.mark.parametrize("n,steps,c", [(24, 36, 3), (64, 130, 4)])
