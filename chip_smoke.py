@@ -46,15 +46,16 @@ In order:
      seeded on the card): the flash_attention kernel against its plain
      version at the path's shape (128, 4096, 128) bf16 causal and at f32,
      window-1024, dh-80 (non-causal), dh-64, dh-256 and ragged (S 100)
-     cases; ``lm_split_infer`` of 4 x 4096 tokens at split 18 through the
-     FP16, INT8 and INT4 codecs
-     (cold, then three warm runs, 36 flash_attention launches a run and
-     one quantize launch an integer codec), the codec's quantize kernel on
-     the bf16 boundary activation against its plain version, head plus
-     tail against the forward, the kernel on layer 0's own q, k, v
-     against its plain version, and at full width cut to 2 layers each
-     block through the kernel, through ``use_kernel=False`` and through
-     the port on the CPU on one input (f32 and bf16), kernel timings
+     cases, and at the MoE, hybrid and VLM paths' shapes (steps 10-12);
+     ``lm_split_infer`` of 4 x 4096 tokens at split 18 through the FP16,
+     INT8 and INT4 codecs (cold, then three warm runs, 36
+     flash_attention launches a run and one quantize launch an integer
+     codec), the codec's quantize kernel on the bf16 boundary activation
+     against its plain version, head plus tail against the forward, the
+     kernel on layer 0's own q, k, v against its plain version, and at
+     full width cut to 2 layers each sublayer through the kernel, through
+     ``use_kernel=False`` and through the port on the CPU on one input
+     (f32 and bf16), kernel timings
      (``scaled_dot_product_attention`` as the yardstick; beside the
      bound, the bf16 kernel's design floor of Q.K^T once and P.V three
      times) and an ``e2e_lm`` line;
@@ -72,15 +73,42 @@ In order:
      checks as the dense LM's (head plus tail, the boundary codec, the
      2-layer cut on the card and the CPU); timings and an ``e2e_ssd_lm``
      line;
- 10. prints the ``{"kernels": [...]}`` line (ssd's row with its three
+ 10. the MoE LM's split serving at mixtral-8x22b's full width (d 6144,
+     48 q over 8 kv heads, 8 experts top-2, d_ff 16384, window 4096),
+     its depth cut to 12 of its 56 layers (bf16 weights seeded on the
+     card): ``lm_split_infer`` of 4 x 4096 tokens at split 6 through FP16,
+     INT8 and INT4 (cold, then three warm runs, 12 flash_attention
+     launches a run at (192, 4096, 128) window 4096, one quantize launch
+     an integer codec) with the same checks as the dense LM's, the card
+     against the CPU at one layer, each sublayer on one input, the MoE's
+     routing decisions (top_i, keep) compared and the share that differ
+     printed, its output held on the tokens whose decisions agree; then
+     llama4-scout-17b-a16e (16 experts, top-1) at full width cut to 2
+     layers, the same checks on the card and the CPU and one timed
+     forward; and an ``e2e_moe_lm`` line;
+ 11. the RG-LRU hybrid's split serving at recurrentgemma-2b's full width
+     and depth (26 layers, d 2560, MQA with dh 256, local window 2048):
+     split 4 of its 8 megablocks, 8 flash_attention launches a run at
+     (40, 4096, 256), the same checks (the card against the CPU at 2
+     RG-LRU layers) and an ``e2e_hybrid_lm`` line;
+ 12. the cross-attention VLM's split serving at llama-3.2-vision-90b's
+     full width (d 8192, 64 q over 8 kv heads, d_ff 28672), its depth cut
+     to 10 of its 100 layers (two SSSSX megablocks), seeded (4, 1601,
+     1280) vision embeddings and cross gates drawn nonzero: split 1, so
+     that the tail's cross block reads the vision embeddings, 8
+     flash_attention launches a run at (256, 4096, 128), the same checks
+     (the card against the CPU at one megablock, its cross block in it)
+     and an ``e2e_vlm`` line;
+ 13. prints the ``{"kernels": [...]}`` line (ssd's row with its three
      routes, each at its path's shape; quantize's and lstm_scan_q's with
      the int8 path's calls of each route, lstm_scan_q's with its design
      floor; lstm_scan's with the fp32 path's calls of each route, the
      block route's time on the same inputs and its design floor; segsum's
      and featurize's with the path's calls of each route and the card's
      launch floor as design floor (an empty kernel, timed in step 5);
-     flash_attention's with its f32 kernel's time) and, last, ``{"ok":
-     true, "device": {...}}``.
+     flash_attention's with its f32 kernel's time and each LM path's
+     launches, quantize's with each LM path's boundary) and, last,
+     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -102,6 +130,10 @@ result.
                                        # checked), the launch floor, and
                                        # segsum's and featurize's wrappers
                                        # and generic routes beside it
+    python3 chip_smoke.py --moe        # only the MoE LM path (step 10; no
+                                       # ok line)
+    python3 chip_smoke.py --hybrid     # only the hybrid and VLM paths
+                                       # (steps 11-12; no ok line)
 """
 from __future__ import annotations
 
@@ -198,15 +230,55 @@ INFER_ATOL = 1e-5
 LM_ARCH, LM_BATCH, LM_SEQ, LM_SPLIT = "granite-8b", 4, 4096, 18
 # the card against the port on the CPU: full width, 2 layers, 256 tokens
 LM_CPU_LAYERS, LM_CPU_SEQ = 2, 256
-# flash_attention against its plain version: (BH, S, dh, dtype, causal,
-# window); the first is the path's launch (batch 4 x 32 q heads)
-ATTN_CHECKS = [(128, 4096, 128, "bfloat16", True, 0),
+# the layers a kernel of an LM path serves: one launch a layer of these
+KERNEL_KINDS = {"flash_attention": ("attn", "local"), "ssd": ("ssd",)}
+# the MoE LM path: mixtral-8x22b at full width (d 6144, 48 q over 8 kv
+# heads, 8 experts top-2, d_ff 16384, window 4096), its depth cut to 12 of
+# its 56 layers (5.0 GB of bf16 weights a layer: 12 and the embedding and
+# head are 56.7 GiB of the card's 80 GB), split at the middle; the card
+# against the CPU at one layer (10 GB in f32)
+MOE_ARCH, MOE_LAYERS, MOE_SPLIT, MOE_CPU_LAYERS = "mixtral-8x22b", 12, 6, 1
+# llama4-scout-17b-a16e (16 experts, top-1, vocab 202048) at full width,
+# cut to 2 layers: the block checks and one timed forward
+SCOUT_ARCH, SCOUT_LAYERS = "llama4-scout-17b-a16e", 2
+# the card's and the CPU's MoE routing decisions on one input: an f32 near
+# tie can flip one, so the output is held on the tokens whose decisions
+# agree; more than this share differing is a fault, not a near tie
+MOE_DECISIONS_DIFFER = 0.05
+# the hybrid LM path: recurrentgemma-2b at full width and depth (26
+# layers: 8 megablocks of two RG-LRU and one local-attention block, two
+# RG-LRU blocks after them), split at the middle of its 8 megablocks
+HYBRID_ARCH, HYBRID_SPLIT = "recurrentgemma-2b", 4
+# the VLM path: llama-3.2-vision-90b at full width (d 8192, 64 q over 8 kv
+# heads, d_ff 28672), its depth cut to 10 of its 100 layers (two SSSSX
+# megablocks of about 1.7 GB a layer), split 1 so that the tail's cross
+# block reads batch["vision"]; the card against the CPU at one megablock
+# (5 layers), the cross block in it
+VLM_ARCH, VLM_LAYERS, VLM_SPLIT, VLM_CPU_LAYERS = (
+    "llama-3.2-vision-90b", 10, 1, 5)
+# flash_attention's launch on each LM path, (BH, S, dh, dtype, causal,
+# window): batch 4 x 32 q heads (granite-8b), 4 x 48 heads at window 4096
+# (mixtral-8x22b), 4 x 10 heads of dh 256 at window 2048
+# (recurrentgemma-2b), 4 x 64 heads (llama-3.2-vision-90b); each is held
+# against the plain version and timed beside its bound
+ATTN_PATH_SHAPES = {LM_ARCH: (128, 4096, 128, "bfloat16", True, 0),
+                    MOE_ARCH: (192, 4096, 128, "bfloat16", True, 4096),
+                    HYBRID_ARCH: (40, 4096, 256, "bfloat16", True, 2048),
+                    VLM_ARCH: (256, 4096, 128, "bfloat16", True, 0)}
+# flash_attention against its plain version: the paths' launches (the
+# first, granite-8b's, is also timed beside plain and SDPA) and cases of
+# f32, windows, head dims and a ragged length
+ATTN_CHECKS = [ATTN_PATH_SHAPES[LM_ARCH],
                (32, 1024, 128, "float32", True, 0),
                (32, 4096, 128, "bfloat16", True, 1024),
                (32, 1024, 80, "bfloat16", False, 0),
                (32, 1024, 64, "bfloat16", True, 0),
                (8, 1024, 256, "bfloat16", True, 0),
-               (4, 100, 128, "bfloat16", True, 0)]
+               (4, 100, 128, "bfloat16", True, 0)] + [
+    ATTN_PATH_SHAPES[a] for a in (MOE_ARCH, HYBRID_ARCH, VLM_ARCH)]
+# the plain version runs on this many heads at a time, so that its f32
+# scores at S 4096 stay at 4.3 GB
+ATTN_REF_HEADS = 64
 # the f32 case timed beside its bound and SDPA: the largest f32 case
 ATTN_F32_TIMED = max((c for c in ATTN_CHECKS if c[3] == "float32"),
                      key=lambda c: c[0] * c[1] * c[1] * c[2])
@@ -225,6 +297,13 @@ ATTN_RTOL = 1e-5
 # CPU's sums through such near ties, by 1.8e-7 between the card's two
 # attention routes); bf16: the tests' bf16 bound (tests/test_torch_lm.py)
 LM_BLOCK_RTOL = {"float32": 1e-4, "bfloat16": 0.05}
+# llama-3.2-vision-90b's f32 sublayers card against CPU: at d 8192 the
+# first layer's scores reach 1.65e3, and the card's f32 sums put its
+# attention sublayer 1.07e-4 of its magnitude from a float64 referee on
+# the CPU, the CPU's own 3.2e-5 (an H100; cut_check reports both), so the
+# two devices differ by 1.04e-4 there; the card's two attention routes
+# agree to 1.7e-7. The bound for this path's f32 cut (bf16 as above)
+LM_BLOCK_RTOL_F32 = {"llama-3.2-vision-90b": 2e-4}
 # the SSD LM path: mamba2-370m at full width and depth, launch/serve.py's
 # middle split of its 48 megablocks, the same batch and codecs
 SSD_LM_ARCH, SSD_LM_SPLIT = "mamba2-370m", 24
@@ -1635,12 +1714,17 @@ def ulp_close(got, want, f32_rtol: float) -> tuple[bool, float, float]:
 
 
 def attention_work(bh: int, s: int, dh: int, nbytes_el: int,
-                   causal: bool) -> tuple[int, int]:
+                   causal: bool, window: int = 0) -> tuple[int, int]:
     """(bytes, flops) of one attention call: q, k, v read once and o
-    written once; Q.K^T and P.V, 2 s^2 dh multiply-adds a head, half of
-    them under the causal mask."""
-    flops = bh * s * s * dh * 2 * 2
-    return 4 * bh * s * dh * nbytes_el, flops // 2 if causal else flops
+    written once; Q.K^T and P.V, 2 dh multiply-adds a (query, key) pair
+    the masks keep (causal: the s (s + 1) / 2 pairs i >= j; a window w:
+    i - j < w of them)."""
+    if not causal:
+        pairs = s * s
+    else:
+        w = min(window or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    return 4 * bh * s * dh * nbytes_el, bh * pairs * dh * 2 * 2
 
 
 def attention_kernel(dev) -> tuple[list, dict]:
@@ -1659,14 +1743,24 @@ def attention_kernel(dev) -> tuple[list, dict]:
                    .to(dtype) for _ in range(3))
         got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        want = attention_ref(q, k, v, causal=causal, window=window)
+        want = torch.cat([attention_ref(
+            q[i:i + ATTN_REF_HEADS], k[i:i + ATTN_REF_HEADS],
+            v[i:i + ATTN_REF_HEADS], causal=causal, window=window)
+            for i in range(0, bh, ATTN_REF_HEADS)])
         ok, err, worst = ulp_close(got, want, ATTN_RTOL)
         case = (bh, s, dh, dt, causal, window)
         check(ok and bool(torch.isfinite(got).all()),
               f"flash_attention within its bound of plain at {case} "
               f"(max |err| {err:.3g}, {worst:.3g} of the bound)")
-        attn_rows.append({"case": list(case), "max_abs_err": err,
-                          "of_bound": worst})
+        row = {"case": list(case), "max_abs_err": err, "of_bound": worst}
+        if case in ATTN_PATH_SHAPES.values():  # timed beside its bound
+            row["path"] = next(a for a, c in ATTN_PATH_SHAPES.items()
+                               if c == case)
+            row["ms"], row["host_ms"] = cuda_ms(lambda: flash_attention(
+                q, k, v, causal=causal, window=window), 10)
+            nb, fl = attention_work(bh, s, dh, 2, causal, window)
+            row["bound_ms"], row["bound_by"] = bound(nb, 0.0, bf16_ops=fl)
+        attn_rows.append(row)
         if len(attn_rows) == 1:
             path_in = (q, k, v)
         if case == ATTN_F32_TIMED:
@@ -1733,11 +1827,46 @@ def attention_kernel(dev) -> tuple[list, dict]:
     return attn_rows, timing
 
 
+def layer_specs(cfg) -> list:
+    """The spec of every layer in order: the megablocks, then the
+    remainder."""
+    return [s for _ in range(cfg.n_full_patterns) for s in cfg.pattern] + \
+        list(cfg.remainder)
+
+
+def model_layers(cfg, *trees):
+    """(spec, each tree's parameters of that layer) for every layer in
+    order: the megablocks, then the remainder."""
+    from repro_torch.models.template import tree_map
+    for i in range(cfg.n_full_patterns):
+        for j, spec in enumerate(cfg.pattern):
+            yield (spec, *(tree_map(lambda t: t[i], tr["groups"][j])
+                           for tr in trees))
+    for j, spec in enumerate(cfg.remainder):
+        yield (spec, *(tr["rem"][j] for tr in trees))
+
+
+def draw_gates(cfg, params, g) -> None:
+    """Every cross-attention gate of ``params`` drawn in [0.5, 1.5] from
+    ``g``: the init is zeros, and tanh(0) = 0 would make each cross block
+    output nothing."""
+    blocks_ = [grp for s, grp in zip(cfg.pattern, params["groups"])
+               if s.kind == "cross"]
+    blocks_ += [p for s, p in zip(cfg.remainder, params["rem"])
+                if s.kind == "cross"]
+    for b in blocks_:
+        gate = b["attn"]["gate"]
+        gate.copy_(torch.rand(gate.shape, generator=g, device=gate.device)
+                   + 0.5)
+
+
 def attention_layer0(cfg, params, tokens, dev) -> dict:
-    """flash_attention on layer 0's own q, k, v (batch 1) against its plain
-    version, in f32 (held; the bf16 inputs upcast exactly) and in bf16
-    (reported: the scores reach |s| ~ 1.5e3, so f32 rounding of a near tie
-    moves a weight more than on random data)."""
+    """flash_attention on the first self-attention layer's own q, k, v
+    (batch 1; the blocks before it in megablock 0 run first) against its
+    plain version, with the layer's window, in f32 (held; the bf16 inputs
+    upcast exactly) and in bf16 (reported: the scores reach |s| ~ 1.5e3,
+    so f32 rounding of a near tie moves a weight more than on random
+    data)."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
                                                      flatten_gqa)
@@ -1745,19 +1874,26 @@ def attention_layer0(cfg, params, tokens, dev) -> dict:
     from repro_torch.models.template import tree_map
 
     bf16 = torch.bfloat16
+    j = next(i for i, s in enumerate(cfg.pattern)
+             if s.kind in ("attn", "local"))
+    window = cfg.pattern[j].window
     with torch.inference_mode():
         x = lm.embed_in(cfg, params, {"tokens": tokens[:1]}, bf16, dev)
-        p0 = tree_map(lambda t: t[0], params["groups"][0])["attn"]
-        q, k, v = blocks.qkv_proj(cfg, p0, blocks.rms_norm(
-            x, p0["ln"], cfg.norm_eps), bf16)
         pos = torch.arange(LM_SEQ, device=dev)[None]
+        for i in range(j):
+            x = lm.apply_block(cfg, cfg.pattern[i], tree_map(
+                lambda t: t[0], params["groups"][i]), x, positions=pos,
+                dtype=bf16)
+        p0 = tree_map(lambda t: t[0], params["groups"][j])["attn"]
+        q, k, v = blocks.qkv_proj(cfg, p0, blocks.rms_norm(
+            x, p0["ln"], cfg.norm_eps), dtype=bf16)
         qkv = flatten_gqa(blocks.rope(q, pos, cfg.rope_theta),
                           blocks.rope(k, pos, cfg.rope_theta), v)
-        real = {}
+        real = {"layer": j, "window": window}
         for dtype in (torch.float32, bf16):
             t3 = [t.to(dtype) for t in qkv]
-            got = flash_attention(*t3, causal=True)
-            want = attention_ref(*t3, causal=True)
+            got = flash_attention(*t3, causal=True, window=window)
+            want = attention_ref(*t3, causal=True, window=window)
             err = (got.float() - want.float()).abs()
             ulp = torch.exp2(torch.floor(torch.log2(
                 want.float().abs().clamp_min(1e-30))) - 7)
@@ -1768,29 +1904,166 @@ def attention_layer0(cfg, params, tokens, dev) -> dict:
                 "max_score": float(torch.matmul(
                     t3[0][:8].float(), t3[1][:8].float().transpose(1, 2)
                 ).abs().max()) * cfg.head_dim ** -0.5}
+            del t3, got, want, err, ulp
     check(real["float32"]["rel_to_max"] <= ATTN_RTOL,
           f"flash_attention within {ATTN_RTOL} of max|o| of plain on layer "
-          f"0's q, k, v {tuple(qkv[0].shape)} in f32 ({real})")
+          f"{j}'s q, k, v {tuple(qkv[0].shape)} in f32 ({real})")
     return real
 
 
+def cut_check(cfg, dev, n_layers: int, tokens, vision) -> tuple[dict, float]:
+    """``cfg`` at full width cut to ``n_layers`` layers, batch 1, LM_CPU_SEQ
+    tokens (and the first row of ``vision``), weights drawn on the card
+    (cross gates nonzero) and copied bit for bit to the CPU, in f32 and in
+    bf16. Each sublayer on one input: the mixer (attention, the RG-LRU or
+    the SSD mixer) through the kernel on the card, through
+    ``use_kernel=False`` on the card and through the port on the CPU (in
+    f32 an attention sublayer also through the port on the CPU in
+    float64, a referee both are reported against); the feed-forward on
+    the card and on the CPU, both on the card's mixer output. A MoE's routing decisions (top_i and keep of every (token,
+    k)) are compared between the card and the CPU, and its output held on
+    the tokens whose decisions agree (an f32 near tie can flip one). Then
+    the logits on one input; the end-to-end logits are reported. Returns
+    ({dtype: each comparison's largest difference relative to the card's
+    output's largest magnitude, ...}, seconds on the CPU)."""
+    import dataclasses
+
+    from repro_torch.models import blocks, init_params, lm
+    from repro_torch.models.template import tree_map
+
+    c2 = dataclasses.replace(cfg, n_layers=n_layers)
+    tk = {"tokens": tokens[:1, :LM_CPU_SEQ]}
+    if vision is not None:
+        tk["vision"] = vision[:1]
+    pos = torch.arange(LM_CPU_SEQ, dtype=torch.int32)[None]
+
+    def rel(a, b, rows=None):
+        a = a.double().cpu().reshape(-1, a.shape[-1])
+        d = (b.double().cpu().reshape(a.shape) - a).abs()
+        d = d if rows is None else d[rows]
+        return float(d.max()) / float(a.abs().max()) if d.numel() else 0.0
+
+    cut, cpu_s = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        p2 = init_params(c2, g, device=dev, dtype=dtype)
+        draw_gates(c2, p2, g)
+        pc = tree_map(lambda t: t.cpu(), p2)  # the same bits
+        vis, vis_c = lm.vision_in(tk, dev), lm.vision_in(tk, "cpu")
+        worst = {"use_kernel_false": 0.0, "cpu": 0.0, "ffn_cpu": 0.0}
+        attn = any(s_.kind in ("attn", "local", "cross")
+                   for s_ in layer_specs(c2))
+        if dtype == torch.float32 and attn:
+            # each attention sublayer against a float64 referee
+            worst.update(card_vs_f64=0.0, cpu_vs_f64=0.0)
+        moe = {"decisions": 0, "differ": 0}
+        with torch.inference_mode():
+            x = lm.embed_in(c2, p2, tk, dtype, dev)
+            for spec, pg, pcg in model_layers(c2, p2, pc):
+                kw = dict(positions=pos.to(dev), vision=vis, dtype=dtype)
+                a = lm.apply_mixer(c2, spec, pg, x, **kw)
+                a_off = lm.apply_mixer(c2, spec, pg, x, use_kernel=False,
+                                       **kw)
+                t0 = time.perf_counter()
+                a_cpu = lm.apply_mixer(c2, spec, pcg, x.cpu(), positions=pos,
+                                       vision=vis_c, dtype=dtype)
+                cpu_s += time.perf_counter() - t0
+                worst["use_kernel_false"] = max(worst["use_kernel_false"],
+                                                rel(a, a_off))
+                worst["cpu"] = max(worst["cpu"], rel(a, a_cpu))
+                if "card_vs_f64" in worst and spec.kind in ("attn", "local",
+                                                            "cross"):
+                    f64 = torch.float64
+                    pd = tree_map(lambda t: t.to(f64), {
+                        k_: v_ for k_, v_ in pcg.items() if k_ != "ffn"})
+                    t0 = time.perf_counter()
+                    a64 = lm.apply_mixer(
+                        c2, spec, pd, x.cpu().to(f64), positions=pos,
+                        vision=None if vis_c is None else vis_c.to(f64),
+                        dtype=f64, use_kernel=False)
+                    cpu_s += time.perf_counter() - t0
+                    worst["card_vs_f64"] = max(worst["card_vs_f64"],
+                                               rel(a64, a))
+                    worst["cpu_vs_f64"] = max(worst["cpu_vs_f64"],
+                                              rel(a64, a_cpu))
+                    del pd, a64
+                if spec.kind == "ssd":  # the mixer is the block
+                    x = a
+                    continue
+                y = lm.apply_ffn(c2, pg, a, dtype)
+                t0 = time.perf_counter()
+                y_cpu = lm.apply_ffn(c2, pcg, a.cpu(), dtype)
+                cpu_s += time.perf_counter() - t0
+                rows = None
+                if c2.is_moe:
+                    r_g, r_c = (blocks.moe_route(c2, q["ffn"], blocks.rms_norm(
+                        t, q["ffn"]["ln"], c2.norm_eps))
+                        for q, t in ((pg, a), (pcg, a.cpu())))
+                    same = ((r_g["top_i"].cpu() == r_c["top_i"])
+                            & (r_g["keep"].cpu() == r_c["keep"]))
+                    moe["decisions"] += same.numel()
+                    moe["differ"] += int((~same).sum())
+                    rows = same.all(-1).reshape(-1)
+                worst["ffn_cpu"] = max(worst["ffn_cpu"], rel(y, y_cpu, rows))
+                x = y
+            lg = lm.logits_out(c2, p2, x, dtype).float().cpu()
+            lc = lm.logits_out(c2, pc, x.cpu(), dtype).float()
+            worst["logits_cpu"] = float((lg - lc).abs().max()
+                                        / lc.abs().max())
+            ga = lm.forward(c2, p2, tk, device=dev).float().cpu()
+            t0 = time.perf_counter()
+            ca = lm.forward(c2, pc, tk, device="cpu").float()
+            cpu_s += time.perf_counter() - t0
+        cut[name] = dict(worst, end_to_end_cpu_rel=float(
+            (ga - ca).abs().max() / ca.abs().max()),
+            argmax_equal=float((ga.argmax(-1) == ca.argmax(-1)).float()
+                               .mean()),
+            last_token_equal=int(ga[0, -1].argmax()) == int(
+                ca[0, -1].argmax()))
+        if c2.is_moe:
+            cut[name]["moe_decisions"] = dict(
+                moe, share_differ=moe["differ"] / moe["decisions"])
+        del p2, pc, x
+        torch.cuda.empty_cache()
+    print(f"{cfg.name} at full width, {n_layers} layers, card vs CPU: "
+          f"{cut} ({cpu_s:.1f} s on the CPU)")
+    for name, rtol in LM_BLOCK_RTOL.items():
+        if name == "float32":
+            rtol = LM_BLOCK_RTOL_F32.get(cfg.name, rtol)
+        for what in ("use_kernel_false", "cpu", "ffn_cpu", "logits_cpu"):
+            check(cut[name][what] <= rtol, f"{cfg.name}, {name}, {n_layers} "
+                  f"layers at full width: each sublayer's (or the logits') "
+                  f"{what.replace('_', ' ')} output within {rtol} of its "
+                  f"largest magnitude ({cut[name][what]:.3g})")
+        if c2.is_moe:
+            share = cut[name]["moe_decisions"]["share_differ"]
+            check(share <= MOE_DECISIONS_DIFFER, f"{cfg.name}, {name}: the "
+                  f"card's and the CPU's routing decisions differ on "
+                  f"{share:.3%} of (token, k), at most "
+                  f"{MOE_DECISIONS_DIFFER:.0%}")
+    return cut, cpu_s
+
+
 def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
-             layer0, route: str | None = None) -> dict:
-    """Split serving of ``arch`` at full width and depth, bf16 weights drawn
-    on the card, LM_BATCH x LM_SEQ seeded tokens split at megablock
+             layer0, route: str | None = None, *, layers: int | None = None,
+             cpu_layers: int = LM_CPU_LAYERS) -> dict:
+    """Split serving of ``arch`` at full width, at full depth or cut to
+    ``layers`` layers, bf16 weights drawn on the card (cross-attention
+    gates nonzero), LM_BATCH x LM_SEQ seeded tokens (and seeded vision
+    embeddings for a cross-attention config) split at megablock
     ``split``: ``lm_split_infer`` through the FP16, INT8 and INT4 codecs
-    (cold, then three warm runs; ``kernel`` launched once a layer, through
-    its ``route`` where it has routes, and quantize once an integer codec,
-    no other kernel), head plus tail
-    through FP16 against the forward, the stages of a warm run, the
-    quantize kernel on the bf16 boundary activation against its plain
-    version, the kernel path against ``use_kernel=False`` at full depth
-    and batch 1 (reported: see LM_BLOCK_RTOL), ``layer0(cfg, params,
-    tokens, dev)`` (the kernel on layer 0's own inputs), and at full width
-    cut to LM_CPU_LAYERS layers each block through the kernel, through
-    ``use_kernel=False`` and through the port on the CPU (f32 and bf16).
-    Returns the numbers of the path's e2e line, the launches of its INT8
-    run and the boundary's quantize rows."""
+    (cold, then three warm runs; ``kernel`` launched once a layer it
+    serves (flash_attention: a self-attention layer; ssd: an SSD layer),
+    through its ``route`` where it has routes, and quantize once an
+    integer codec, no other kernel), head plus tail through FP16 against
+    the forward, the stages of a warm run, the quantize kernel on the bf16
+    boundary activation against its plain version, the kernel path
+    against ``use_kernel=False`` at batch 1 (reported: see LM_BLOCK_RTOL),
+    ``layer0(cfg, params, tokens, dev)`` (the kernel on its first layer's
+    own inputs), and ``cut_check`` at ``cpu_layers`` layers. Returns the
+    numbers of the path's e2e line, the launches of its runs and the
+    boundary's quantize rows."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1800,23 +2073,42 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
     from repro_torch.kernels.quant import quantize, quantize_ref
     from repro_torch.kernels.quant import route as quant_route
     from repro_torch.models import init_params, lm
-    from repro_torch.models.template import tree_map
 
     bf16 = torch.bfloat16
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    n_kernel = sum(s.kind in KERNEL_KINDS[kernel] for s in layer_specs(cfg))
+
+    def make_params():
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, g, device=dev, dtype=bf16)
+        draw_gates(cfg, params, g)
+        return params
+
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                         device=dev, dtype=bf16)
+    params = make_params()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     tokens = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
     batch = {"tokens": tokens}
+    vision = None
+    if cfg.vision_dim:
+        vision = torch.randn(
+            (LM_BATCH, cfg.vision_tokens, cfg.vision_dim),
+            generator=torch.Generator(device=dev).manual_seed(SEED + 2),
+            device=dev)
+        batch["vision"] = vision
     n_tok = LM_BATCH * LM_SEQ
-    print(f"{arch} setup: {cfg.param_count() / 1e9:.3f} B parameters, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB bf16, drawn on "
-          f"the card in {init_s:.2f} s; {LM_BATCH} x {LM_SEQ} tokens, split "
-          f"{split} of {cfg.n_full_patterns}")
+    depth = (f"{cfg.n_layers} of its {full.n_layers} layers"
+             if layers is not None else f"{cfg.n_layers} layers")
+    print(f"{arch} setup: {depth}, {cfg.param_count() / 1e9:.3f} B "
+          f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"bf16, drawn on the card in {init_s:.2f} s; {LM_BATCH} x "
+          f"{LM_SEQ} tokens"
+          + (f" and vision {tuple(vision.shape)}" if vision is not None
+             else "") + f", split {split} of {cfg.n_full_patterns}")
 
     def run(codec):
         reset_launches()
@@ -1832,12 +2124,12 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
     for codec in codecs:
         out, first_s, launches = run(codec)
         if route is not None:
-            check(ROUTES[kernel][route] == cfg.n_layers,
+            check(ROUTES[kernel][route] == n_kernel,
                   f"{arch} {codec.name}: every {kernel} call took the "
                   f"{route} route ({ROUTES[kernel]})")
-        want = {kernel: cfg.n_layers, "quantize": int(codec.bits < 16)}
+        want = {kernel: n_kernel, "quantize": int(codec.bits < 16)}
         check(all(launches[k_] == want.get(k_, 0) for k_ in launches),
-              f"{arch} {codec.name}: {cfg.n_layers} {kernel} launches and "
+              f"{arch} {codec.name}: {n_kernel} {kernel} launches and "
               f"{want['quantize']} quantize a run, no other kernel "
               f"({launches})")
         check(out.shape == (LM_BATCH, 1, cfg.vocab)
@@ -1854,12 +2146,13 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
                             "launches": launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with torch.inference_mode():
-        full = lm.forward(cfg, params, batch, logits_mode="last", device=dev)
-    check(torch.equal(full, runs["fp16"]["out"]), f"{arch}: head plus tail "
+        whole = lm.forward(cfg, params, batch, logits_mode="last",
+                           device=dev)
+    check(torch.equal(whole, runs["fp16"]["out"]), f"{arch}: head plus tail "
           "through the FP16 codec equals forward(logits_mode='last') bit "
           "for bit")
-    codec_rel = {c: float((runs[c]["out"].float() - full.float()).abs().max()
-                          / full.float().abs().max()) for c in runs}
+    codec_rel = {c: float((runs[c]["out"].float() - whole.float()).abs()
+                          .max() / whole.float().abs().max()) for c in runs}
 
     # stages of a warm run, and the codec's kernel on the boundary
     # activation against its plain version
@@ -1896,97 +2189,40 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
                                            rows2d.data_ptr() % 16 == 0),
                       "count": 1, "ms": qms, "plain_ms": qpms,
                       "bound_ms": qb_ms, "bound_by": qby, "host_ms": qhost,
-                      "plain_host_ms": qphost})
+                      "plain_host_ms": qphost, "path": arch})
     del act, sent, rows2d
 
-    # batch 1 at full depth: the kernel path against use_kernel=False
-    # (reported: see LM_BLOCK_RTOL); the kernel on layer 0's own inputs
+    # batch 1: the kernel path against use_kernel=False (reported: see
+    # LM_BLOCK_RTOL); the kernel on its first layer's own inputs
     with torch.inference_mode():
-        b1 = {"tokens": tokens[:1]}
+        b1 = {k_: v_[:1] for k_, v_ in batch.items()}
         a = lm.forward(cfg, params, b1, logits_mode="last", device=dev)
         b = lm.forward(cfg, params, b1, logits_mode="last", use_kernel=False,
                        device=dev)
         deep_off_rel = float((a.float() - b.float()).abs().max()
                              / b.float().abs().max())
     real = layer0(cfg, params, tokens, dev)
-    del params, a, b, full
+    del params, a, b, whole
     for r in runs.values():
         del r["out"]
     torch.cuda.empty_cache()
 
-    # full width cut to 2 layers, batch 1, LM_CPU_SEQ tokens, weights drawn
-    # on the card and copied bit for bit to the CPU, in f32 and in bf16:
-    # each block on one input through the kernel on the card, through
-    # use_kernel=False on the card and through the port on the CPU, then
-    # the logits on one input; the end-to-end logits are reported
-    c2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS)
-    tk = {"tokens": tokens[:1, :LM_CPU_SEQ]}
-    pos = torch.arange(LM_CPU_SEQ, dtype=torch.int32)[None]
-    cut, cpu_s = {}, 0.0
-    for dtype in (torch.float32, bf16):
-        name = str(dtype).split(".")[-1]
-        p2 = init_params(c2, torch.Generator(device=dev).manual_seed(
-            SEED + 1), device=dev, dtype=dtype)
-        pc = tree_map(lambda t: t.cpu(), p2)  # the same bits
-        worst = {"use_kernel_false": 0.0, "cpu": 0.0}
-        with torch.inference_mode():
-            x = lm.embed_in(c2, p2, tk, dtype, dev)
-            for i in range(LM_CPU_LAYERS):
-                spec = c2.pattern[0]
-                pg, pcg = (tree_map(lambda t: t[i], t_["groups"][0])
-                           for t_ in (p2, pc))
-                y = lm.apply_block(c2, spec, pg, x, positions=pos.to(dev),
-                                   dtype=dtype)
-                y_off = lm.apply_block(c2, spec, pg, x, positions=pos.to(dev),
-                                       dtype=dtype, use_kernel=False)
-                t0 = time.perf_counter()
-                y_cpu = lm.apply_block(c2, spec, pcg, x.cpu(), positions=pos,
-                                       dtype=dtype)
-                cpu_s += time.perf_counter() - t0
-                top = float(y.float().abs().max())
-                for what, other in (("use_kernel_false", y_off),
-                                    ("cpu", y_cpu)):
-                    rel = float((other.float() - y.float().to(other.device))
-                                .abs().max()) / top
-                    worst[what] = max(worst[what], rel)
-                x = y
-            lg = lm.logits_out(c2, p2, x, dtype).float().cpu()
-            lc = lm.logits_out(c2, pc, x.cpu(), dtype).float()
-            worst["logits_cpu"] = float((lg - lc).abs().max()
-                                        / lc.abs().max())
-            ga = lm.forward(c2, p2, tk, device=dev).float().cpu()
-            t0 = time.perf_counter()
-            ca = lm.forward(c2, pc, tk, device="cpu").float()
-            cpu_s += time.perf_counter() - t0
-        cut[name] = dict(worst, end_to_end_cpu_rel=float(
-            (ga - ca).abs().max() / ca.abs().max()),
-            argmax_equal=float((ga.argmax(-1) == ca.argmax(-1)).float()
-                               .mean()),
-            last_token_equal=int(ga[0, -1].argmax()) == int(
-                ca[0, -1].argmax()))
-        del p2, pc
-        torch.cuda.empty_cache()
-    print(f"{arch} path: lm_split_infer({LM_BATCH} x {LM_SEQ}, split "
-          f"{split}) launches "
+    cut, cpu_s = cut_check(cfg, dev, cpu_layers, tokens, vision)
+    print(f"{arch} path: lm_split_infer({LM_BATCH} x {LM_SEQ}, {depth}, "
+          f"split {split}) launches "
           f"{ {c: r['launches'] for c, r in runs.items()} }; codecs vs the "
-          f"forward (max |diff| / max |logit|) {codec_rel}; full depth, "
-          f"batch 1, use_kernel=False vs the kernel path {deep_off_rel:.3g} "
-          f"(reported); layer 0's {kernel} on its own inputs {real}; "
-          f"{LM_CPU_LAYERS} layers at full width (card vs CPU {cpu_s:.1f} s "
-          f"on the CPU) {cut}; peak device memory {peak_gib:.2f} GiB")
-    for name, rtol in LM_BLOCK_RTOL.items():
-        for what in ("use_kernel_false", "cpu", "logits_cpu"):
-            check(cut[name][what] <= rtol, f"{arch}, {name}, "
-                  f"{LM_CPU_LAYERS} layers at full width: each block's (or "
-                  f"the logits') {what.replace('_', ' ')} output within "
-                  f"{rtol} of its largest magnitude ({cut[name][what]:.3g})")
+          f"forward (max |diff| / max |logit|) {codec_rel}; batch 1, "
+          f"use_kernel=False vs the kernel path {deep_off_rel:.3g} "
+          f"(reported); the first layer's {kernel} on its own inputs "
+          f"{real}; {cpu_layers} layers at full width (card vs CPU "
+          f"{cpu_s:.1f} s on the CPU) {cut}; peak device memory "
+          f"{peak_gib:.2f} GiB")
 
     busy = None
     if "--profile" in argv:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
-            SEED), device=dev, dtype=bf16)
+        params = make_params()
         run(boundary.INT8)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof_run:
@@ -2003,8 +2239,9 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
         torch.cuda.empty_cache()
 
     e2e = {
-        "arch": arch, "layers": cfg.n_layers, "batch": LM_BATCH,
-        "seq": LM_SEQ, "split": split, "tokens": n_tok,
+        "arch": arch, "layers": cfg.n_layers, "layers_of": full.n_layers,
+        "batch": LM_BATCH, "seq": LM_SEQ, "split": split, "tokens": n_tok,
+        "vision": None if vision is None else list(vision.shape),
         "card": smi, "init_s": init_s,
         "codecs": {c: {"first_s": r["first_s"], "warm_s": r["warm_s"],
                        "tokens_per_s": n_tok / float(np.median(r["warm_s"])),
@@ -2013,8 +2250,9 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
                    for c, r in runs.items()},
         "stages_s": stages, "peak_device_gib": peak_gib,
         "device_busy": busy, "codec_vs_forward_rel": codec_rel,
-        "full_depth_use_kernel_false_rel": deep_off_rel,
-        f"layer0_{kernel}": real, "cut_to_2_layers": cut}
+        "batch1_use_kernel_false_rel": deep_off_rel,
+        f"first_layer_{kernel}": real,
+        f"cut_to_{cpu_layers}_layers": cut}
     return {"e2e": e2e, "launches": runs["fp16"]["launches"][kernel],
             "quantize_launches": runs["int8"]["launches"]["quantize"],
             "boundary": qrows}
@@ -2039,7 +2277,8 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
            "max_abs_err": attn_rows[0]["max_abs_err"], **timing,
            "dtype": "bfloat16", "causal": True,
            "per": f"one launch at the path's shape, {res['launches']} a "
-                  "split inference"}
+                  "split inference",
+           "path_shapes": [r for r in attn_rows if "path" in r]}
     return row, {"launches_lm": res["quantize_launches"],
                  "lm_boundary": res["boundary"]}
 
@@ -2212,7 +2451,7 @@ def ssd_lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     res = serve_lm(dev, smi, argv, SSD_LM_ARCH, SSD_LM_SPLIT, "ssd",
                    ssd_layer0, route=SSD_ROUTE["bfloat16"])
     print(json.dumps({"e2e_ssd_lm": dict(res["e2e"], ssd_checks=checks)}))
-    real = res["e2e"]["layer0_ssd"]
+    real = res["e2e"]["first_layer_ssd"]
     src = "src/repro_torch/kernels/csrc/ssd_chunked.cu"
     wgmma = {k: real[k] for k in (
         "route", "device_launches_per_call", "shape", "dtype", "ms",
@@ -2230,6 +2469,99 @@ def ssd_lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     return {"chunked_wgmma": wgmma, "chunked": core}, {
         "launches_ssd_lm": res["quantize_launches"],
         "ssd_lm_boundary": res["boundary"]}
+
+
+def scout_check(dev) -> dict:
+    """llama4-scout-17b-a16e (16 experts, top-1, vocab 202048) at full
+    width cut to SCOUT_LAYERS layers: ``cut_check`` at those layers, then
+    one forward of LM_BATCH x LM_SEQ seeded tokens with bf16 weights drawn
+    on the card (cold, then three warm runs; flash_attention once a
+    layer, no other kernel). Returns the numbers of the e2e_moe_lm line's
+    ``scout`` entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params, lm
+
+    full = get_config(SCOUT_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SCOUT_LAYERS)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    cut, cpu_s = cut_check(cfg, dev, SCOUT_LAYERS, tokens, None)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = lm.forward(cfg, params, {"tokens": tokens},
+                             logits_mode="last", device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+    out, first_s, launches = run()
+    check(all(launches[k_] == (SCOUT_LAYERS if k_ == "flash_attention"
+                               else 0) for k_ in launches),
+          f"{SCOUT_ARCH}: {SCOUT_LAYERS} flash_attention launches a forward, "
+          f"no other kernel ({launches})")
+    check(out.shape == (LM_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(out).all()),
+          f"{SCOUT_ARCH}: finite last-token logits")
+    warm = []
+    for _ in range(3):
+        again, s_, l_ = run()
+        warm.append(s_)
+        check(l_ == launches and torch.equal(again, out),
+              f"{SCOUT_ARCH}: a warm forward repeats the first")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del params, out, again
+    torch.cuda.empty_cache()
+    res = {"arch": SCOUT_ARCH, "layers": SCOUT_LAYERS,
+           "layers_of": full.n_layers, "batch": LM_BATCH, "seq": LM_SEQ,
+           "first_s": first_s, "warm_s": warm,
+           "tokens_per_s": LM_BATCH * LM_SEQ / float(np.median(warm)),
+           "launches": {k_: v_ for k_, v_ in launches.items() if v_},
+           "peak_device_gib": peak_gib,
+           f"cut_to_{SCOUT_LAYERS}_layers": cut, "cpu_s": cpu_s}
+    print(f"{SCOUT_ARCH} at full width, {SCOUT_LAYERS} layers: {res}")
+    return res
+
+
+def moe_path(dev, smi: str, argv) -> dict:
+    """Split serving of the MoE LM: ``serve_lm`` of mixtral-8x22b at full
+    width cut to MOE_LAYERS layers, split MOE_SPLIT, the card against the
+    CPU at MOE_CPU_LAYERS layers; then ``scout_check``; and the
+    ``e2e_moe_lm`` line. Returns serve_lm's result, with scout's
+    flash_attention launches."""
+    res = serve_lm(dev, smi, argv, MOE_ARCH, MOE_SPLIT, "flash_attention",
+                   attention_layer0, layers=MOE_LAYERS,
+                   cpu_layers=MOE_CPU_LAYERS)
+    torch.cuda.empty_cache()
+    scout = scout_check(dev)
+    print(json.dumps({"e2e_moe_lm": dict(res["e2e"], scout=scout)}))
+    return dict(res, scout_launches=scout["launches"].get("flash_attention", 0))
+
+
+def hybrid_path(dev, smi: str, argv) -> tuple[dict, dict]:
+    """Split serving of the RG-LRU hybrid (``serve_lm`` of
+    recurrentgemma-2b at full width and depth, split HYBRID_SPLIT) and of
+    the cross-attention VLM (llama-3.2-vision-90b at full width cut to
+    VLM_LAYERS layers, split VLM_SPLIT, seeded vision embeddings, the card
+    against the CPU at VLM_CPU_LAYERS layers), with the ``e2e_hybrid_lm``
+    and ``e2e_vlm`` lines. Returns serve_lm's two results."""
+    hyb = serve_lm(dev, smi, argv, HYBRID_ARCH, HYBRID_SPLIT,
+                   "flash_attention", attention_layer0)
+    print(json.dumps({"e2e_hybrid_lm": hyb["e2e"]}))
+    torch.cuda.empty_cache()
+    vlm = serve_lm(dev, smi, argv, VLM_ARCH, VLM_SPLIT, "flash_attention",
+                   attention_layer0, layers=VLM_LAYERS,
+                   cpu_layers=VLM_CPU_LAYERS)
+    print(json.dumps({"e2e_vlm": vlm["e2e"]}))
+    return hyb, vlm
 
 
 def main(argv: list[str]) -> int:
@@ -2323,6 +2655,12 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"pairwise_dists": dict(
             shape_totals(rows), card=smi, max_abs_err=err,
             max_rel_d2_err=rel, shapes=rows)}))
+        return 0
+    if "--moe" in argv:  # the MoE LM path alone
+        moe_path(dev, smi, argv)
+        return 0
+    if "--hybrid" in argv:  # the RG-LRU hybrid and the VLM paths alone
+        hybrid_path(dev, smi, argv)
         return 0
 
     # the main path's inputs: a mixed S0-S3 episode at the paper's width,
@@ -2695,6 +3033,28 @@ def main(argv: list[str]) -> int:
         "routes": {**ssd_routes, "fused": ssd_fused}}
     kernels.append(ssd_row)
     print(json.dumps(ssd_row))
+
+    # 10. split serving of the MoE LMs: mixtral-8x22b at full width cut to
+    # 12 layers, llama4-scout-17b-a16e cut to 2
+    torch.cuda.empty_cache()
+    moe = moe_path(dev, smi, argv)
+    # 11-12. split serving of the RG-LRU hybrid (recurrentgemma-2b) at full
+    # width and depth, and of the VLM (llama-3.2-vision-90b) cut to 10
+    # layers
+    torch.cuda.empty_cache()
+    hyb, vlm = hybrid_path(dev, smi, argv)
+    attn_row["launches_by_path"] = {
+        LM_ARCH: attn_row["launches"], f"{MOE_ARCH} ({MOE_LAYERS} layers)":
+        moe["launches"], f"{SCOUT_ARCH} ({SCOUT_LAYERS} layers, forward)":
+        moe["scout_launches"], HYBRID_ARCH: hyb["launches"],
+        f"{VLM_ARCH} ({VLM_LAYERS} layers)": vlm["launches"]}
+    next(k for k in kernels if k["name"] == "quantize").update({
+        "launches_moe_lm": moe["quantize_launches"],
+        "moe_lm_boundary": moe["boundary"],
+        "launches_hybrid_lm": hyb["quantize_launches"],
+        "hybrid_lm_boundary": hyb["boundary"],
+        "launches_vlm": vlm["quantize_launches"],
+        "vlm_boundary": vlm["boundary"]})
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile

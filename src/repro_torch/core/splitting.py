@@ -49,19 +49,20 @@ def lm_head(cfg, params, batch, k: int, *, dtype=torch.bfloat16,
     """embed + pattern-groups [0, k) -> residual activation (B, S, D)."""
     dev = lm.checked_device(cfg, params, device)
     x = lm.embed_in(cfg, params, batch, dtype, dev)
-    return lm.run_blocks(cfg, params, x, 0, k, remainder=False, dtype=dtype,
+    return lm.run_blocks(cfg, params, x, 0, k, remainder=False,
+                         vision=lm.vision_in(batch, dev), dtype=dtype,
                          use_kernel=use_kernel)
 
 
 def lm_tail(cfg, params, act, batch, k: int, *, dtype=torch.bfloat16,
             logits_mode="last", use_kernel=True,
             device="cuda") -> torch.Tensor:
-    """pattern-groups [k, n_full) + remainder + logits. ``batch`` is not
-    read: the dense blocks take no side input (a cross-attention block's
-    vision embeddings would come from it)."""
+    """pattern-groups [k, n_full) + remainder + logits. Only
+    ``batch["vision"]`` is read, by the cross-attention blocks."""
     dev = lm.checked_device(cfg, params, device)
     x = lm.run_blocks(cfg, params, act.to(device=dev, dtype=dtype), k,
-                      cfg.n_full_patterns, remainder=True, dtype=dtype,
+                      cfg.n_full_patterns, remainder=True,
+                      vision=lm.vision_in(batch, dev), dtype=dtype,
                       use_kernel=use_kernel)
     if logits_mode == "last":
         x = x[:, -1:]

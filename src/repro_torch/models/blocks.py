@@ -1,4 +1,5 @@
-"""Building blocks of the LM: attention, the MLP and the Mamba-2 SSD mixer
+"""Building blocks of the LM: attention (self and cross), the MLP, the
+MoE feed-forward, the RG-LRU recurrent block and the Mamba-2 SSD mixer
 (template-driven).
 
 Every block has a ``*_template(cfg)`` returning a ParamSpec tree and a
@@ -16,15 +17,20 @@ full-sequence self-attention to the ``flash_attention`` kernel through
 ``kernels.flash_attention.mha``; ``use_kernel=False`` takes
 ``local_attention`` for a window shorter than the sequence,
 ``chunked_attention`` past ``ATTN_CHUNK`` tokens and ``direct_attention``
-otherwise.
+otherwise. Cross-attention (to the vision embeddings) always takes
+``chunked_attention``, non-causal and without rope, as the reference's,
+which never sends it to its kernel.
 
 The SSD mixer routes as the reference's ``ssd_block``: ``use_kernel=True``
 sends the chunked scan to the ``ssd`` kernel (``kernels.ssd``) with the
 chunk ``min(ssm_chunk, S)``, which must divide S; ``use_kernel=False`` is
 the reference's XLA route, its plain version in f32 with the whole
-sequence as one chunk where the chunk does not divide S. The MoE,
-recurrent and cross-attention blocks, ``ssd_decode`` and the decode caches
-are later slices (``lm.check_ported``).
+sequence as one chunk where the chunk does not divide S.
+
+The MoE feed-forward (``moe_block``), the RG-LRU scan (``rec_block``) and
+the cross-attention core are torch ops, as the reference leaves them to
+XLA. ``ssd_decode``, ``rec_decode`` and the decode caches are a later
+slice (``lm.apply_block``).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ F32 = torch.float32
 DEFAULT_COMPUTE = torch.bfloat16
 NEG_INF = -1e30
 ATTN_CHUNK = 1024  # kv-chunk of chunked_attention
+MOE_GROUP = 1024  # tokens per MoE dispatch group
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -175,19 +182,25 @@ def local_attention(q, k, v, *, window, scale):
     return o[:, :S]
 
 
-def attn_template(cfg):
+def attn_template(cfg, kind: str = "attn"):
+    """Self-attention ("attn", "local"), or cross-attention ("cross"):
+    ``wk``/``wv`` then take ``vision_dim`` inputs and a scalar ``gate``
+    (zeros) scales the output by tanh(gate)."""
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    kv_in = cfg.vision_dim if kind == "cross" else D
     t = {
         "ln": ParamSpec((D,), ("embed",), init="zeros"),
         "wq": ParamSpec((D, H, dh), ("fsdp", "heads", None)),
-        "wk": ParamSpec((D, KV, dh), ("fsdp", "kv", None)),
-        "wv": ParamSpec((D, KV, dh), ("fsdp", "kv", None)),
+        "wk": ParamSpec((kv_in, KV, dh), ("fsdp", "kv", None)),
+        "wv": ParamSpec((kv_in, KV, dh), ("fsdp", "kv", None)),
         "wo": ParamSpec((H, dh, D), ("heads", None, "fsdp")),
     }
     if cfg.qkv_bias:
         t["bq"] = ParamSpec((H, dh), ("heads", None), init="zeros")
         t["bk"] = ParamSpec((KV, dh), ("kv", None), init="zeros")
         t["bv"] = ParamSpec((KV, dh), ("kv", None), init="zeros")
+    if kind == "cross":
+        t["gate"] = ParamSpec((), (), init="zeros")
     return t
 
 
@@ -199,9 +212,13 @@ def _proj(x, w, dtype):
         B, S, *w.shape[1:])
 
 
-def qkv_proj(cfg, p, x, dtype=DEFAULT_COMPUTE):
-    """q (B, S, H, dh); k, v (B, S, KV, dh) (one GPU: no kv repeat)."""
-    q, k, v = (_proj(x, p[n], dtype) for n in ("wq", "wk", "wv"))
+def qkv_proj(cfg, p, x, cross_kv=None, dtype=DEFAULT_COMPUTE):
+    """q (B, S, H, dh) from x; k, v (B, Sk, KV, dh) from ``cross_kv`` (B,
+    Sk, vision_dim), cast to ``dtype``, or else from x (one GPU: no kv
+    repeat)."""
+    kv_src = x if cross_kv is None else cast(cross_kv, dtype)
+    q = _proj(x, p["wq"], dtype)
+    k, v = (_proj(kv_src, p[n], dtype) for n in ("wk", "wv"))
     if cfg.qkv_bias:
         q = q + cast(p["bq"], dtype)
         k = k + cast(p["bk"], dtype)
@@ -209,34 +226,54 @@ def qkv_proj(cfg, p, x, dtype=DEFAULT_COMPUTE):
     return q, k, v
 
 
-def attention_block(cfg, p, x, *, kind, window, positions,
-                    dtype=DEFAULT_COMPUTE, use_kernel=True):
-    """Full-sequence (train / prefill) self-attention sublayer ("attn" or
-    "local"). Returns the residual delta (B, S, D)."""
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = qkv_proj(cfg, p, h, dtype)
-    scale = cfg.head_dim ** -0.5
+def _self_attention(cfg, q, k, v, *, window, positions, scale,
+                    use_kernel):
+    """Rope, then the core ``use_kernel`` and the shape choose."""
+    S = q.shape[1]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    B, S = x.shape[:2]
     if use_kernel:
-        o = mha(q, k, v, causal=cfg.causal, window=window)
-    elif window and S > window:
-        o = local_attention(q, k, v, window=window, scale=scale)
-    elif S > ATTN_CHUNK:
-        o = chunked_attention(q, k, v, causal=cfg.causal, window=window,
-                              scale=scale)
+        return mha(q, k, v, causal=cfg.causal, window=window)
+    if window and S > window:
+        return local_attention(q, k, v, window=window, scale=scale)
+    if S > ATTN_CHUNK:
+        return chunked_attention(q, k, v, causal=cfg.causal, window=window,
+                                 scale=scale)
+    q_pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if cfg.causal:
+        mask &= q_pos[:, None] >= q_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - q_pos[None, :] < window
+    return direct_attention(q, k, v, mask, scale)
+
+
+def attention_block(cfg, p, x, *, kind, window, positions, cross_kv=None,
+                    dtype=DEFAULT_COMPUTE, use_kernel=True):
+    """Full-sequence (train / prefill) attention sublayer: self-attention
+    ("attn" or "local"), or cross-attention ("cross") to ``cross_kv`` (B,
+    Sk, vision_dim), non-causal, without rope, through
+    ``chunked_attention`` whatever ``use_kernel`` says, its output scaled
+    by tanh(gate). Returns the residual delta (B, S, D)."""
+    cross = kind == "cross"
+    if cross and cross_kv is None:
+        raise ValueError("a cross-attention block needs the vision "
+                         "embeddings (batch['vision'])")
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = qkv_proj(cfg, p, h, cross_kv if cross else None, dtype)
+    scale = cfg.head_dim ** -0.5
+    if cross:
+        o = chunked_attention(q, k, v, causal=False, window=0, scale=scale)
     else:
-        q_pos = torch.arange(S, device=x.device)
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
-        if cfg.causal:
-            mask &= q_pos[:, None] >= q_pos[None, :]
-        if window:
-            mask &= q_pos[:, None] - q_pos[None, :] < window
-        o = direct_attention(q, k, v, mask, scale)
+        o = _self_attention(cfg, q, k, v, window=window, positions=positions,
+                            scale=scale, use_kernel=use_kernel)
+    B, S = x.shape[:2]
     wo = cast(p["wo"], dtype)
-    return torch.matmul(o.reshape(B * S, -1), wo.reshape(-1, wo.shape[-1])
-                        ).reshape(B, S, -1)
+    out = torch.matmul(o.reshape(B * S, -1), wo.reshape(-1, wo.shape[-1])
+                       ).reshape(B, S, -1)
+    if cross:
+        out = torch.tanh(cast(p["gate"], F32)).to(dtype) * out
+    return out
 
 
 # ------------------------------------------------------------------ MLP
@@ -257,7 +294,98 @@ def mlp_block(cfg, p, x, dtype=DEFAULT_COMPUTE):
     return _proj(g * u, p["wd"], dtype)
 
 
-# ------------------------------------------------------------------ Mamba2 SSD
+# ------------------------------------------------------------------ MoE
+def moe_template(cfg):
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "ln": ParamSpec((D,), ("embed",), init="zeros"),
+        "router": ParamSpec((D, E), (None, None), init="fan_in"),
+        "wg": ParamSpec((E, D, Fd), ("experts", "fsdp", "ff")),
+        "wu": ParamSpec((E, D, Fd), ("experts", "fsdp", "ff")),
+        "wd": ParamSpec((E, Fd, D), ("experts", "ff", "fsdp")),
+    }
+
+
+def moe_group(T: int) -> int:
+    """Tokens per dispatch group: MOE_GROUP, or all T where it does not
+    divide T."""
+    g = min(MOE_GROUP, T)
+    return T if T % g else g
+
+
+def _one_hot(i, n: int):
+    return (i[..., None] == torch.arange(n, device=i.device)).to(torch.long)
+
+
+def moe_route(cfg, p, h) -> dict:
+    """Top-k routing of the normed tokens ``h`` (B, S, D), in groups of
+    ``moe_group(B * S)`` tokens: f32 router logits and softmax, the top k
+    (the lower expert first on ties, as ``lax.top_k``), their weights
+    renormalised by max(sum, 1e-9), and each (token, k)'s place in its
+    expert's queue, by k and then by token; a place at or past the
+    capacity max(1, int(capacity_factor * g * K / E)) drops it. Returns
+    {"probs" (nG, g, E) f32, "top_p" (nG, g, K) f32, "top_i", "slot"
+    (nG, g, K) int64, "keep" (nG, g, K) bool, "cap"}. The router's
+    product is f32: TF32 must be off (``torch.backends.cuda.matmul.
+    allow_tf32``, off by default)."""
+    B, S, D = h.shape
+    E, K = cfg.num_experts, cfg.top_k
+    g = moe_group(B * S)
+    nG = B * S // g
+    logits = torch.matmul(cast(h, F32).reshape(nG, g, D),
+                          cast(p["router"], F32))
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :K], top_i[..., :K]
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    cap = max(1, int(cfg.capacity_factor * g * K / E))
+    flat = _one_hot(top_i.transpose(1, 2).reshape(nG, K * g), E)
+    pos = torch.cumsum(flat, dim=1) - flat  # exclusive, by k then token
+    slot = (pos * flat).sum(-1).reshape(nG, K, g).transpose(1, 2)
+    return {"probs": probs, "top_p": top_p, "top_i": top_i, "slot": slot,
+            "keep": slot < cap, "cap": cap}
+
+
+def moe_block(cfg, p, x, dtype=DEFAULT_COMPUTE):
+    """The MoE feed-forward, full-sequence: ``moe_route``, then each kept
+    (token, k) gathered into its (expert, slot) row (empty slots are zero
+    rows), the experts' gated MLP as batched products over the experts in
+    ``dtype``, and each token's kept rows summed in f32 with weights
+    top_p rounded to ``dtype`` first, rounded once: the sums of the
+    reference's one-hot dispatch and combine, without its products by
+    zero. Returns (the residual delta (B, S, D), the aux loss)."""
+    B, S, D = x.shape
+    E, K, T = cfg.num_experts, cfg.top_k, B * S
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    r = moe_route(cfg, p, h)
+    nG, g, _ = r["top_i"].shape
+    n_rows = E * nG * r["cap"]
+    # rows in (expert, group, slot) order; a dropped (token, k) goes to a
+    # discard row past them
+    grp = torch.arange(nG, device=x.device)[:, None, None]
+    row = (r["top_i"] * nG + grp) * r["cap"] + r["slot"]
+    row = torch.where(r["keep"], row, n_rows)
+    tok = torch.arange(T, device=x.device).reshape(nG, g, 1).expand(-1, -1, K)
+    src = torch.full((n_rows + 1,), T, dtype=torch.long, device=x.device)
+    src.scatter_(0, row.reshape(-1), tok.reshape(-1))
+    xt = cast(h, dtype).reshape(T, D)
+    xe = torch.cat([xt, xt.new_zeros(1, D)]).index_select(0, src[:-1])
+    xe = xe.reshape(E, nG * r["cap"], D)
+    hid = _act(cfg.act)(torch.matmul(xe, cast(p["wg"], dtype)))
+    hid = hid * torch.matmul(xe, cast(p["wu"], dtype))
+    ye = torch.matmul(hid, cast(p["wd"], dtype)).reshape(n_rows, D)
+    del xe, hid
+    keep = r["keep"].reshape(T, K, 1)
+    yk = ye.index_select(0, torch.where(r["keep"], row, 0).reshape(-1))
+    w = cast(r["top_p"], dtype).to(F32).reshape(T, K, 1)
+    y = torch.where(keep, yk.reshape(T, K, D).to(F32) * w, 0.0).sum(1)
+    # the Switch load-balancing loss: E * sum_e(mean prob_e * share_e) / K
+    me = r["probs"].mean(dim=(0, 1))
+    fe = _one_hot(r["top_i"], E).sum(2).to(F32).mean(dim=(0, 1))
+    return cast(y, dtype).reshape(B, S, D), E * torch.sum(me * fe) / K
+
+
+# ------------------------------------------------------------------ RG-LRU
 def _causal_conv(x, w, b, state=None):
     """Depthwise causal conv. x (B, S, W), w (cw, W); ``state`` (B, cw - 1,
     W), the previous inputs, or None for zeros on the left. Returns (y,
@@ -273,6 +401,76 @@ def _causal_conv(x, w, b, state=None):
     return y + b, new_state
 
 
+_LRU_C = 8.0
+
+
+def rec_template(cfg):
+    D, W = cfg.d_model, cfg.lru_width
+    cw = cfg.conv1d_width
+    return {
+        "ln": ParamSpec((D,), ("embed",), init="zeros"),
+        "wx": ParamSpec((D, W), ("fsdp", "ff")),
+        "wy": ParamSpec((D, W), ("fsdp", "ff")),
+        "conv_w": ParamSpec((cw, W), (None, "ff"), init="fan_in"),
+        "conv_b": ParamSpec((W,), ("ff",), init="zeros"),
+        "wi": ParamSpec((W, W), ("fsdp", "ff")),
+        "wa": ParamSpec((W, W), ("fsdp", "ff")),
+        "lam": ParamSpec((W,), ("ff",), init="normal", scale=0.5),
+        "wo": ParamSpec((W, D), ("ff", "fsdp")),
+    }
+
+
+def _softplus(u):
+    return torch.logaddexp(u, torch.zeros_like(u))  # jax.nn.softplus
+
+
+def _rglru_gates(p, xc, dtype):
+    """The decay a = exp(-8 softplus(lam) r) and the gated input
+    sqrt(max(1 - a^2, 1e-9)) i xc, both f32, from the input and recurrence
+    gates i, r (sigmoids in ``dtype``)."""
+    i = torch.sigmoid(_proj(xc, p["wi"], dtype))
+    r = torch.sigmoid(_proj(xc, p["wa"], dtype))
+    log_a = -_LRU_C * _softplus(cast(p["lam"], F32)) * cast(r, F32)
+    a = torch.exp(log_a)
+    gated = (torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9))
+             * cast(i, F32) * cast(xc, F32))
+    return a, gated
+
+
+def rglru_scan(a, b):
+    """h_t = a_t h_(t-1) + b_t along dim 1 from h_(-1) = 0, for every t:
+    the odd/even recursion of the reference's ``lax.associative_scan``
+    (pairs combined, the half-length scan, then the even positions), so
+    the sums group as the reference's, in log2(S) levels of torch ops."""
+    n = a.shape[1]
+    if n < 2:
+        return b
+    a2 = a[:, 1::2]
+    odd = rglru_scan(a[:, 0:-1:2] * a2, b[:, 0:-1:2] * a2 + b[:, 1::2])
+    ae = a[:, 2::2]
+    out = torch.empty_like(b)
+    out[:, :1] = b[:, :1]
+    out[:, 1::2] = odd
+    out[:, 2::2] = odd[:, :ae.shape[1]] * ae + b[:, 2::2]
+    return out
+
+
+def rec_block(cfg, p, x, dtype=DEFAULT_COMPUTE):
+    """The RG-LRU temporal-mixing sublayer, full-sequence. Returns (the
+    residual delta (B, S, D), the decode state {"h": the last step's
+    state (B, W) f32, "conv": the conv state in bf16})."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    xb = _proj(h, p["wx"], dtype)
+    yb = _act(cfg.act)(_proj(h, p["wy"], dtype))
+    xc, conv_state = _causal_conv(xb, cast(p["conv_w"], dtype),
+                                  cast(p["conv_b"], dtype))
+    a, gated = _rglru_gates(p, xc, dtype)
+    hseq = rglru_scan(a, gated)
+    out = _proj(cast(hseq, dtype) * yb, p["wo"], dtype)
+    return out, {"h": hseq[:, -1], "conv": cast(conv_state, torch.bfloat16)}
+
+
+# ------------------------------------------------------------------ Mamba2 SSD
 def ssd_template(cfg):
     D, Din, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh, G, cw = cfg.d_inner // cfg.ssm_headdim, cfg.ssm_ngroups, \
@@ -303,7 +501,7 @@ def _ssd_inputs(cfg, p, x, dtype):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     z = _proj(h, p["wz"], dtype)
     u = _proj(h, p["wdt"], dtype).to(F32) + cast(p["dt_bias"], F32)
-    dt = torch.logaddexp(u, torch.zeros_like(u))  # jax.nn.softplus
+    dt = _softplus(u)
     conv, states = {}, {}
     for name in ("x", "B", "C"):
         t, states[name] = _causal_conv(_proj(h, p["w" + name], dtype),

@@ -1,14 +1,16 @@
 """Pattern-grouped LM: repeated megablocks of ``cfg.pattern`` plus an
-unrolled remainder, for the dense attention and the SSD configurations.
+unrolled remainder, for every configuration of the registry: dense, MoE,
+sliding-window, local:global, cross-attention VLM, RG-LRU hybrid and SSD.
 
 Parameters are the reference's tree (``model_template``): ``embed``,
 ``groups`` (one tree per pattern position, each leaf stacked over the
 ``n_full_patterns`` megablocks), ``rem`` (the remainder blocks),
 ``final_ln`` and, unless the embeddings are tied, ``head``. The forward is
 full-sequence (train, or prefill without a cache) and walks the stacked
-layers with a Python loop; ``decode_step``, caches, ``lm_loss`` and the
-MoE, recurrent and cross-attention blocks are later slices, and
-``check_ported`` names their ROADMAP.md queue items.
+layers with a Python loop. It returns the logits; the MoE blocks' aux loss
+is dropped, as only ``lm_loss`` (training, a later slice) consumes it.
+``decode_step``, caches and ``lm_loss`` are later slices, and
+``apply_block`` names their ROADMAP.md queue item.
 """
 from __future__ import annotations
 
@@ -28,25 +30,28 @@ def _not_ported(what: str, item: str):
         f"item {item}")
 
 
+KINDS = ("attn", "local", "cross", "rec", "ssd")
+
+
 def check_ported(cfg) -> None:
-    """Raise for a configuration whose blocks are a later slice."""
-    if cfg.is_moe:
-        raise _not_ported(f"{cfg.name}: MoE blocks", "18")
+    """Raise for a block kind the LM does not know."""
     for spec in cfg.pattern:
-        if spec.kind in ("rec", "cross"):
-            raise _not_ported(f"{cfg.name}: {spec.kind!r} blocks", "19")
-        if spec.kind not in ("attn", "local", "ssd"):
+        if spec.kind not in KINDS:
             raise ValueError(f"unknown block kind {spec.kind!r}")
 
 
 # ------------------------------------------------------------------ templates
 def block_template(cfg, spec):
-    """An attention block ("attn" or "local"): attention then the dense
-    MLP; an "ssd" block: the mixer alone. ``check_ported`` refuses the
-    others."""
+    """An attention block ("attn", "local" or "cross"): attention then
+    the feed-forward (the MoE for a MoE config, else the dense MLP); a
+    "rec" block: the RG-LRU then the dense MLP; an "ssd" block: the mixer
+    alone."""
     if spec.kind == "ssd":
         return {"ssd": B.ssd_template(cfg)}
-    return {"attn": B.attn_template(cfg), "ffn": B.mlp_template(cfg)}
+    if spec.kind == "rec":
+        return {"rec": B.rec_template(cfg), "ffn": B.mlp_template(cfg)}
+    ffn = B.moe_template(cfg) if cfg.is_moe else B.mlp_template(cfg)
+    return {"attn": B.attn_template(cfg, spec.kind), "ffn": ffn}
 
 
 def model_template(cfg):
@@ -68,32 +73,51 @@ def model_template(cfg):
 
 
 # ------------------------------------------------------------------ blocks
-def _apply_ffn(cfg, p, x, dtype):
+def apply_ffn(cfg, p, x, dtype):
+    """The feed-forward sublayer added to the residual stream: the MoE (its
+    aux loss dropped) or the dense MLP."""
+    if cfg.is_moe:
+        delta, _ = B.moe_block(cfg, p["ffn"], x, dtype)
+        return x + delta
     return x + B.mlp_block(cfg, p["ffn"], x, dtype)
 
 
-def apply_block(cfg, spec, p, x, *, positions, mode="train",
+def apply_mixer(cfg, spec, p, x, *, positions, vision=None,
                 dtype=B.DEFAULT_COMPUTE, use_kernel=True):
-    """One block, full-sequence: attention then the MLP, each added to the
-    residual stream; or the SSD mixer, added to it."""
-    if mode not in ("train", "prefill"):
-        raise _not_ported(f"mode={mode!r} (decode and its caches)", "20")
+    """The block's first sublayer added to the residual stream: attention
+    (a cross block's to ``vision``), the RG-LRU or the SSD mixer."""
     if spec.kind == "ssd":
         delta, _ = B.ssd_block(cfg, p["ssd"], x, dtype, use_kernel)
-        return x + delta
-    x = x + B.attention_block(cfg, p["attn"], x, kind=spec.kind,
-                              window=spec.window, positions=positions,
-                              dtype=dtype, use_kernel=use_kernel)
-    return _apply_ffn(cfg, p, x, dtype)
+    elif spec.kind == "rec":
+        delta, _ = B.rec_block(cfg, p["rec"], x, dtype)
+    else:
+        delta = B.attention_block(cfg, p["attn"], x, kind=spec.kind,
+                                  window=spec.window, positions=positions,
+                                  cross_kv=vision, dtype=dtype,
+                                  use_kernel=use_kernel)
+    return x + delta
+
+
+def apply_block(cfg, spec, p, x, *, positions, vision=None, mode="train",
+                dtype=B.DEFAULT_COMPUTE, use_kernel=True):
+    """One block, full-sequence: ``apply_mixer``, then the feed-forward
+    but in an SSD block (the mixer alone), each added to the residual
+    stream."""
+    if mode not in ("train", "prefill"):
+        raise _not_ported(f"mode={mode!r} (decode and its caches)", "20")
+    x = apply_mixer(cfg, spec, p, x, positions=positions, vision=vision,
+                    dtype=dtype, use_kernel=use_kernel)
+    return x if spec.kind == "ssd" else apply_ffn(cfg, p, x, dtype)
 
 
 def run_blocks(cfg, params, x, lo: int, hi: int, *, remainder: bool,
-               mode="train", dtype=B.DEFAULT_COMPUTE, use_kernel=True):
+               vision=None, mode="train", dtype=B.DEFAULT_COMPUTE,
+               use_kernel=True):
     """Megablocks [lo, hi) of ``params["groups"]``, then the remainder
-    blocks if ``remainder``."""
+    blocks if ``remainder``; cross blocks attend to ``vision``."""
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None]
-    kw = dict(positions=positions, mode=mode, dtype=dtype,
+    kw = dict(positions=positions, vision=vision, mode=mode, dtype=dtype,
               use_kernel=use_kernel)
     for i in range(lo, hi):
         for spec, group in zip(cfg.pattern, params["groups"]):
@@ -125,6 +149,13 @@ def embed_in(cfg, params, batch, dtype, device):
     return x
 
 
+def vision_in(batch, dev):
+    """``batch["vision"]`` (B, vision_tokens, vision_dim) on ``dev``, or
+    None."""
+    v = batch.get("vision")
+    return None if v is None else _input(v, dev)
+
+
 def logits_out(cfg, params, x, dtype):
     h = B.rms_norm(x, params["final_ln"], cfg.norm_eps)
     if "head" in params:
@@ -138,8 +169,8 @@ def logits_out(cfg, params, x, dtype):
 
 
 def checked_device(cfg, params, device) -> torch.device:
-    """``device`` resolved, after refusing a configuration of a later slice
-    and parameters that lie elsewhere."""
+    """``device`` resolved, after refusing an unknown block kind and
+    parameters that lie elsewhere."""
     check_ported(cfg)
     dev = resolve_device(device)
 
@@ -156,19 +187,22 @@ def checked_device(cfg, params, device) -> torch.device:
 def forward(cfg, params, batch, *, mode="train", dtype=B.DEFAULT_COMPUTE,
             logits_mode="all", use_kernel=True, device="cuda"):
     """Full-sequence pass over ``batch`` ({"tokens": (B, S)} or
-    {"frames": (B, S, F)}, numpy arrays or tensors); ``params`` must
-    already be on ``device``. ``logits_mode``: "all" (B, S, V), "last"
-    (B, 1, V) or "none" (returns None). ``use_kernel`` routes
+    {"frames": (B, S, F)}, and {"vision": (B, vision_tokens, vision_dim)}
+    for a cross-attention config; numpy arrays or tensors); ``params``
+    must already be on ``device``. ``logits_mode``: "all" (B, S, V),
+    "last" (B, 1, V) or "none" (returns None). ``use_kernel`` routes
     self-attention to the flash_attention kernel and the SSD mixer to the
     ssd kernel (see ``blocks``).
-    Returns the logits, in ``dtype`` (f32 with a softcap)."""
+    Returns the logits, in ``dtype`` (f32 with a softcap); a MoE config's
+    aux loss is not returned (only ``lm_loss``, a later slice, needs it)."""
     if logits_mode not in ("all", "last", "none"):
         raise ValueError(f"logits_mode must be all, last or none, got "
                          f"{logits_mode!r}")
     dev = checked_device(cfg, params, device)
     x = embed_in(cfg, params, batch, dtype, dev)
     x = run_blocks(cfg, params, x, 0, cfg.n_full_patterns, remainder=True,
-                   mode=mode, dtype=dtype, use_kernel=use_kernel)
+                   vision=vision_in(batch, dev), mode=mode, dtype=dtype,
+                   use_kernel=use_kernel)
     if logits_mode == "none":
         return None
     if logits_mode == "last":

@@ -15,9 +15,12 @@ leaves are (int8 codes, f32 scales) tuples.
 the forward permutes the kernels at use, so names and layouts carry over
 as they are.
 ``lm_params_from_reference`` takes the reference's LM tree
-(``jax.tree.map(np.asarray, repro.models.init_params(cfg, key))``): the
-same keys, the stacked ``groups`` and the ``rem`` tuples, the same
-layouts, optionally cast (``dtype=torch.bfloat16`` as served).
+(``jax.tree.map(np.asarray, repro.models.init_params(cfg, key))``) of any
+configuration: the same keys, the stacked ``groups`` and the ``rem``
+tuples, the same layouts (the MoE's ``router`` and (E, ...) expert
+weights, the RG-LRU's, a cross block's scalar ``gate``, 0-d in ``rem``
+and (n,) stacked in ``groups``), optionally cast (``dtype=torch.bfloat16``
+as served).
 ``load_reference_checkpoint`` reads the reference checkpoint format
 directly — a ``manifest.json`` plus one ``.npy`` per leaf, keyed by
 ``jax.tree_util.keystr`` paths such as ``['lstm']['wx']`` — without JAX.

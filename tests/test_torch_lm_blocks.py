@@ -2,10 +2,13 @@
 non-kernel attention cores in f32 within 1e-5 of the output's largest
 magnitude; the SSD mixer of mamba2-370m (both routes, f32 and bf16) and
 its causal conv; and every block of gemma3-27b (local windows, gelu, tied
-embeddings, softcap) and qwen2-72b (qkv bias) on the reference's own input,
-through both attention routes, in f32 within 1e-5 and in bf16 within two
-bf16 ulps of the block output's largest magnitude (the end-to-end forward
-of gemma3-27b in bf16 amplifies any 1-ulp difference; see
+embeddings, softcap), qwen2-72b (qkv bias), mixtral-8x22b and
+llama4-scout-17b-a16e (MoE, top-2 and top-1), recurrentgemma-2b (RG-LRU
+and local attention) and llama-3.2-vision-90b (cross-attention to seeded
+vision embeddings) on the reference's own input, through both attention
+routes, in f32 within 1e-5 and in bf16 within two bf16 ulps of the block
+output's largest magnitude (the end-to-end forwards of gemma3-27b, scout
+and the VLM in bf16 amplify any 1-ulp difference; see
 ``test_torch_lm.py``)."""
 import functools
 
@@ -23,6 +26,7 @@ from repro_torch.models import blocks, init_params, lm
 from repro_torch.models.template import tree_map
 from repro_torch.weights import lm_params_from_reference
 from test_torch_kernels_cuda import bf16_close
+from test_torch_lm import numpy_params
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -33,8 +37,7 @@ def _reference(name, seed):
     """Both packages' reduced config and one set of weights made from a
     seed, as the reference's tree of arrays and of JAX arrays."""
     cfg = get_config(name).reduced()
-    tree = tree_map(lambda t: t.numpy(), init_params(
-        cfg, torch.Generator().manual_seed(seed), device="cpu"))
+    tree = numpy_params(cfg, seed)
     return (ref_get_config(name).reduced(), cfg,
             jax.tree.map(jnp.asarray, tree), tree)
 
@@ -74,7 +77,10 @@ def test_norm_rope_and_attention_cores_match_reference():
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("name", ["gemma3-27b", "qwen2-72b"])
+@pytest.mark.parametrize("name", ["gemma3-27b", "qwen2-72b", "mixtral-8x22b",
+                                  "llama4-scout-17b-a16e",
+                                  "recurrentgemma-2b",
+                                  "llama-3.2-vision-90b"])
 def test_blocks_match_reference(name, dtype):
     """Each block (and the logits) on the reference's own input: f32
     within 1e-5, bf16 within two bf16 ulps, of the output's largest
@@ -82,8 +88,13 @@ def test_blocks_match_reference(name, dtype):
     jdt, tdt = DTYPES[dtype]
     ref_cfg, cfg, rp, tree = _reference(name, 3)
     params = lm_params_from_reference(tree, device="cpu")
-    batch = {"tokens": np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, 32)).astype(np.int32)}
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)}
+    vision = tvision = None
+    if cfg.vision_dim:
+        v = rng.normal(size=(2, cfg.vision_tokens, cfg.vision_dim)).astype(
+            np.float32)
+        vision, tvision = jnp.asarray(v), torch.from_numpy(v)
     x = ref_lm.embed_in(ref_cfg, rp, batch, jdt)
     got = lm.embed_in(cfg, params, batch, tdt, "cpu")
     np.testing.assert_array_equal(got.float().numpy(),
@@ -97,12 +108,12 @@ def test_blocks_match_reference(name, dtype):
         xin = torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
         x, _, _ = ref_lm.apply_block(ref_cfg, spec, rpb, x, mode="train",
                                      positions=jnp.arange(32)[None],
-                                     dtype=jdt)
+                                     vision=vision, dtype=jdt)
         want = np.asarray(x.astype(jnp.float32))
         for use_kernel in (True, False):
             out = lm.apply_block(cfg, spec, pb, xin, dtype=tdt,
                                  positions=torch.arange(32)[None],
-                                 use_kernel=use_kernel)
+                                 vision=tvision, use_kernel=use_kernel)
             top = np.abs(want).max()
             tol = (1e-5 * top if dtype == "float32"
                    else 2 * 2.0 ** (np.floor(np.log2(top)) - 7))
