@@ -99,15 +99,36 @@ In order:
      flash_attention launches a run at (256, 4096, 128), the same checks
      (the card against the CPU at one megablock, its cross block in it)
      and an ``e2e_vlm`` line;
- 13. prints the ``{"kernels": [...]}`` line (ssd's row with its three
+ 13. decode, inside steps 8-12 (``serve_lm``): on each LM path, after the
+     split serving, ``lm.prefill`` of the same 4 x 4096 tokens with room
+     for the decode steps (cold, then two warm runs; the path's kernel once
+     a layer it serves, and with the int8 KV cache quantize twice a
+     self-attention layer; the last logits bit-equal to the forward's;
+     every self-attention ring holding exactly the prompt's last
+     positions, recurrentgemma-2b's local rings 2048..4095), then
+     teacher-forced ``lm.decode_step`` calls, each timed (no
+     flash_attention and no ssd; quantize twice a self-attention layer a
+     step with the int8 cache; every ring slid by one a step): granite-8b
+     64 steps with the bf16 and with the int8 KV cache (quantize bit-equal
+     to plain on layer 0's prefill k and v rows (131072, 128) and on one
+     step's (32, 128), timed), the other paths 16 steps with the bf16
+     cache; the decode logits against the forward over the prompt and the
+     decode tokens reported; and in every cut's card-against-CPU check
+     (granite-8b also with the int8 cache) each mixer's prefill cache and
+     4 decode steps sublayer by sublayer; then the ``e2e_decode`` line
+     (prefill s, the median step, tokens/s, cache and peak GiB, with
+     ``--profile`` the device's busy share over four steps);
+ 14. prints the ``{"kernels": [...]}`` line (ssd's row with its three
      routes, each at its path's shape; quantize's and lstm_scan_q's with
      the int8 path's calls of each route, lstm_scan_q's with its design
      floor; lstm_scan's with the fp32 path's calls of each route, the
      block route's time on the same inputs and its design floor; segsum's
      and featurize's with the path's calls of each route and the card's
      launch floor as design floor (an empty kernel, timed in step 5);
-     flash_attention's with its f32 kernel's time and each LM path's
-     launches, quantize's with each LM path's boundary) and, last,
+     flash_attention's with its f32 kernel's time, each LM path's
+     launches and ``scaled_dot_product_attention`` at each path's shape,
+     quantize's with each LM path's boundary and the int8 KV cache's
+     shapes; every row with its decode launches) and, last,
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
@@ -130,10 +151,11 @@ result.
                                        # checked), the launch floor, and
                                        # segsum's and featurize's wrappers
                                        # and generic routes beside it
-    python3 chip_smoke.py --moe        # only the MoE LM path (step 10; no
-                                       # ok line)
+    python3 chip_smoke.py --moe        # only the MoE LM path (step 10,
+                                       # its decode; no ok line)
     python3 chip_smoke.py --hybrid     # only the hybrid and VLM paths
-                                       # (steps 11-12; no ok line)
+                                       # (steps 11-12, their decode; no
+                                       # ok line)
 """
 from __future__ import annotations
 
@@ -304,6 +326,23 @@ LM_BLOCK_RTOL = {"float32": 1e-4, "bfloat16": 0.05}
 # two devices differ by 1.04e-4 there; the card's two attention routes
 # agree to 1.7e-7. The bound for this path's f32 cut (bf16 as above)
 LM_BLOCK_RTOL_F32 = {"llama-3.2-vision-90b": 2e-4}
+# a decode step's mixer in f32, card against CPU from the same cache: as
+# the reference's, k and v are written to a bf16 cache even in f32, and
+# each device rounds its own f32 k and v, which differ in the last bits,
+# so an element of the slot the step writes can land one bf16 ulp (2^-8
+# of it) away and weigh in with its softmax weight; granite-8b's first
+# f32 decode sublayers moved by 1.76e-4 of their magnitude (an H100)
+LM_DECODE_RTOL_F32 = 1e-3
+# decode after each LM path's LM_BATCH x LM_SEQ prefill: teacher-forced
+# seeded tokens, one a sequence a step; granite-8b at full width and depth
+# LM_DECODE_STEPS steps with the bf16 and with the int8 KV cache, every
+# other path DECODE_STEPS with the bf16 cache. The first DECODE_COLD
+# steps are left out of the median step (the allocator and cuBLAS's first
+# calls at the new shapes)
+LM_DECODE_STEPS, DECODE_STEPS, DECODE_COLD = 64, 16, 2
+# the cuts' card-against-CPU decode steps after their LM_CPU_SEQ-token
+# prefill
+CUT_DECODE_STEPS = 4
 # the SSD LM path: mamba2-370m at full width and depth, launch/serve.py's
 # middle split of its 48 megablocks, the same batch and codecs
 SSD_LM_ARCH, SSD_LM_SPLIT = "mamba2-370m", 24
@@ -1727,6 +1766,34 @@ def attention_work(bh: int, s: int, dh: int, nbytes_el: int,
     return 4 * bh * s * dh * nbytes_el, bh * pairs * dh * 2 * 2
 
 
+def sdpa_row(q, k, v, want, causal: bool, window: int) -> dict:
+    """A yardstick only (the port never calls it): PyTorch's
+    ``scaled_dot_product_attention`` on the same (BH, S, dh) tensors as
+    (LM_BATCH, heads, S, dh), ``is_causal`` without a window and a boolean
+    mask of the window's pairs with one, timed, and its largest
+    difference from the plain version."""
+    bh, s, dh = q.shape
+    q4, k4, v4 = (t.view(LM_BATCH, bh // LM_BATCH, s, dh) for t in (q, k, v))
+    kw = {"is_causal": causal}
+    if window:
+        i = torch.arange(s, device=q.device)
+        kw = {"attn_mask": (i[:, None] >= i[None, :])
+              & (i[:, None] - i[None, :] < window)}
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, **kw)
+
+    err = float((sdpa().reshape(bh, s, dh).float() - want.float()).abs()
+                .max())
+    ms, host = cuda_ms(sdpa, 10)
+    return {"library_ms": ms, "library_host_ms": host,
+            "library_max_abs_err": err,
+            "library": "scaled_dot_product_attention, "
+                       + ("boolean window mask" if window else
+                          "is_causal" if causal else "no mask")}
+
+
 def attention_kernel(dev) -> tuple[list, dict]:
     """flash_attention against its plain version at every ATTN_CHECKS case,
     then timed at the LM path's shape (the first case) beside its plain
@@ -1743,10 +1810,14 @@ def attention_kernel(dev) -> tuple[list, dict]:
                    .to(dtype) for _ in range(3))
         got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        want = torch.cat([attention_ref(
-            q[i:i + ATTN_REF_HEADS], k[i:i + ATTN_REF_HEADS],
-            v[i:i + ATTN_REF_HEADS], causal=causal, window=window)
-            for i in range(0, bh, ATTN_REF_HEADS)])
+
+        def plain():
+            return torch.cat([attention_ref(
+                q[i:i + ATTN_REF_HEADS], k[i:i + ATTN_REF_HEADS],
+                v[i:i + ATTN_REF_HEADS], causal=causal, window=window)
+                for i in range(0, bh, ATTN_REF_HEADS)])
+
+        want = plain()
         ok, err, worst = ulp_close(got, want, ATTN_RTOL)
         case = (bh, s, dh, dt, causal, window)
         check(ok and bool(torch.isfinite(got).all()),
@@ -1760,6 +1831,8 @@ def attention_kernel(dev) -> tuple[list, dict]:
                 q, k, v, causal=causal, window=window), 10)
             nb, fl = attention_work(bh, s, dh, 2, causal, window)
             row["bound_ms"], row["bound_by"] = bound(nb, 0.0, bf16_ops=fl)
+            row["plain_ms"], _ = cuda_ms(plain, 2)  # ATTN_REF_HEADS a call
+            row.update(sdpa_row(q, k, v, want, causal, window))
         attn_rows.append(row)
         if len(attn_rows) == 1:
             path_in = (q, k, v)
@@ -1911,7 +1984,46 @@ def attention_layer0(cfg, params, tokens, dev) -> dict:
     return real
 
 
-def cut_check(cfg, dev, n_layers: int, tokens, vision) -> tuple[dict, float]:
+def cache_diff(card: dict, cpu: dict, rtol: float) -> dict:
+    """A block's decode cache on the card against the CPU's: f32 leaves'
+    largest difference relative to the card leaf's largest magnitude; bf16
+    leaves' largest difference over one bf16 ulp of each element plus
+    ``rtol`` of that magnitude (a value rounded to bf16 from f32 sums in
+    another order can land one ulp away); positions must be equal; int8
+    codes are compared by their largest difference and the share that
+    differ. Returns {"f32": rel, "bf16": of the bound, "pos_equal": bool,
+    "codes_max": int, "codes_differ": share, "codes_n": count}."""
+    from repro_torch.models.template import tree_map
+    out = {"f32": 0.0, "bf16": 0.0, "pos_equal": True, "codes_max": 0,
+           "codes_differ": 0, "codes_n": 0}
+    leaves_g, leaves_c = [], []
+    tree_map(leaves_g.append, card)
+    tree_map(leaves_c.append, cpu)
+    for g, c in zip(leaves_g, leaves_c):
+        g = g.cpu()
+        if g.dtype == torch.int32:
+            out["pos_equal"] &= torch.equal(g, c)
+        elif g.dtype == torch.int8:
+            d = (g.int() - c.int()).abs()
+            out["codes_max"] = max(out["codes_max"], int(d.max()))
+            out["codes_differ"] += int((d > 0).sum())
+            out["codes_n"] += d.numel()
+        elif g.dtype == torch.float32:
+            top = float(g.abs().max())
+            out["f32"] = max(out["f32"], float((g - c).abs().max())
+                             / max(top, 1e-30))
+        else:
+            err = (g.float() - c.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                g.float().abs().clamp_min(1e-30))) - 7)
+            bound_ = ulp + rtol * float(g.float().abs().max())
+            out["bf16"] = max(out["bf16"], float((err / bound_).max()))
+    return out
+
+
+def cut_check(cfg, dev, n_layers: int, tokens, vision,
+              decode_steps: int = CUT_DECODE_STEPS,
+              kv_dtypes=("bf16",)) -> tuple[dict, float]:
     """``cfg`` at full width cut to ``n_layers`` layers, batch 1, LM_CPU_SEQ
     tokens (and the first row of ``vision``), weights drawn on the card
     (cross gates nonzero) and copied bit for bit to the CPU, in f32 and in
@@ -1920,22 +2032,30 @@ def cut_check(cfg, dev, n_layers: int, tokens, vision) -> tuple[dict, float]:
     ``use_kernel=False`` on the card and through the port on the CPU (in
     f32 an attention sublayer also through the port on the CPU in
     float64, a referee both are reported against); the feed-forward on
-    the card and on the CPU, both on the card's mixer output. A MoE's routing decisions (top_i and keep of every (token,
-    k)) are compared between the card and the CPU, and its output held on
-    the tokens whose decisions agree (an f32 near tie can flip one). Then
-    the logits on one input; the end-to-end logits are reported. Returns
-    ({dtype: each comparison's largest difference relative to the card's
-    output's largest magnitude, ...}, seconds on the CPU)."""
+    the card and on the CPU, both on the card's mixer output. A MoE's
+    routing decisions (top_i and keep of every (token, k)) are compared
+    between the card and the CPU, and its output held on the tokens whose
+    decisions agree (an f32 near tie can flip one). Each mixer's prefill
+    cache (room for ``decode_steps`` more tokens) is held against the
+    CPU's (``cache_diff``). Then ``decode_steps`` teacher-forced decode
+    steps, sublayer by sublayer: each mixer on the card's input and the
+    card's cache, on the card and on the CPU (a copy of the card's cache),
+    its output and updated cache held, then the feed-forward as above.
+    Then the logits on one input; the end-to-end logits are reported.
+    Each cache dtype of ``kv_dtypes`` is a pass of its own (the int8 KV
+    cache's codes: within one code, the share that differ reported).
+    Returns ({dtype: each comparison's largest difference relative to the
+    card's output's largest magnitude, ...}, seconds on the CPU)."""
     import dataclasses
 
     from repro_torch.models import blocks, init_params, lm
     from repro_torch.models.template import tree_map
 
-    c2 = dataclasses.replace(cfg, n_layers=n_layers)
     tk = {"tokens": tokens[:1, :LM_CPU_SEQ]}
     if vision is not None:
         tk["vision"] = vision[:1]
     pos = torch.arange(LM_CPU_SEQ, dtype=torch.int32)[None]
+    max_seq = LM_CPU_SEQ + decode_steps
 
     def rel(a, b, rows=None):
         a = a.double().cpu().reshape(-1, a.shape[-1])
@@ -1943,111 +2063,417 @@ def cut_check(cfg, dev, n_layers: int, tokens, vision) -> tuple[dict, float]:
         d = d if rows is None else d[rows]
         return float(d.max()) / float(a.abs().max()) if d.numel() else 0.0
 
+    def ffn_pair(c2, pg, pcg, a, worst, moe, what):
+        """The feed-forward on the card and on the CPU, both on the card's
+        mixer output ``a``; a MoE's decisions compared and its output held
+        on the tokens whose decisions agree."""
+        nonlocal cpu_s
+        y = lm.apply_ffn(c2, pg, a, dtype)
+        t0 = time.perf_counter()
+        y_cpu = lm.apply_ffn(c2, pcg, a.cpu(), dtype)
+        cpu_s += time.perf_counter() - t0
+        rows = None
+        if c2.is_moe:
+            r_g, r_c = (blocks.moe_route(c2, q["ffn"], blocks.rms_norm(
+                t, q["ffn"]["ln"], c2.norm_eps))
+                for q, t in ((pg, a), (pcg, a.cpu())))
+            same = ((r_g["top_i"].cpu() == r_c["top_i"])
+                    & (r_g["keep"].cpu() == r_c["keep"]))
+            moe["decisions"] += same.numel()
+            moe["differ"] += int((~same).sum())
+            rows = same.all(-1).reshape(-1)
+        worst[what] = max(worst[what], rel(y, y_cpu, rows))
+        return y
+
+    def held_cache(worst, diff, what):
+        worst[what] = max(worst[what], diff["f32"])
+        worst[what + "_bf16_of_bound"] = max(
+            worst[what + "_bf16_of_bound"], diff["bf16"])
+        worst["pos_equal"] &= diff["pos_equal"]
+        for k_ in ("codes_max", "codes_differ", "codes_n"):
+            worst[k_] = (max if k_ == "codes_max" else sum)(
+                (worst[k_], diff[k_]))
+
     cut, cpu_s = {}, 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
-        g = torch.Generator(device=dev).manual_seed(SEED + 1)
-        p2 = init_params(c2, g, device=dev, dtype=dtype)
-        draw_gates(c2, p2, g)
-        pc = tree_map(lambda t: t.cpu(), p2)  # the same bits
-        vis, vis_c = lm.vision_in(tk, dev), lm.vision_in(tk, "cpu")
-        worst = {"use_kernel_false": 0.0, "cpu": 0.0, "ffn_cpu": 0.0}
-        attn = any(s_.kind in ("attn", "local", "cross")
-                   for s_ in layer_specs(c2))
-        if dtype == torch.float32 and attn:
-            # each attention sublayer against a float64 referee
-            worst.update(card_vs_f64=0.0, cpu_vs_f64=0.0)
-        moe = {"decisions": 0, "differ": 0}
-        with torch.inference_mode():
-            x = lm.embed_in(c2, p2, tk, dtype, dev)
-            for spec, pg, pcg in model_layers(c2, p2, pc):
-                kw = dict(positions=pos.to(dev), vision=vis, dtype=dtype)
-                a = lm.apply_mixer(c2, spec, pg, x, **kw)
-                a_off = lm.apply_mixer(c2, spec, pg, x, use_kernel=False,
-                                       **kw)
-                t0 = time.perf_counter()
-                a_cpu = lm.apply_mixer(c2, spec, pcg, x.cpu(), positions=pos,
-                                       vision=vis_c, dtype=dtype)
-                cpu_s += time.perf_counter() - t0
-                worst["use_kernel_false"] = max(worst["use_kernel_false"],
-                                                rel(a, a_off))
-                worst["cpu"] = max(worst["cpu"], rel(a, a_cpu))
-                if "card_vs_f64" in worst and spec.kind in ("attn", "local",
-                                                            "cross"):
-                    f64 = torch.float64
-                    pd = tree_map(lambda t: t.to(f64), {
-                        k_: v_ for k_, v_ in pcg.items() if k_ != "ffn"})
+    for kv in kv_dtypes:
+        c2 = dataclasses.replace(cfg, n_layers=n_layers, kv_dtype=kv)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            rtol = LM_BLOCK_RTOL[name]
+            if dtype == torch.float32:
+                rtol = LM_BLOCK_RTOL_F32.get(cfg.name, rtol)
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            p2 = init_params(c2, g, device=dev, dtype=dtype)
+            draw_gates(c2, p2, g)
+            pc = tree_map(lambda t: t.cpu(), p2)  # the same bits
+            vis, vis_c = lm.vision_in(tk, dev), lm.vision_in(tk, "cpu")
+            worst = {"use_kernel_false": 0.0, "cpu": 0.0, "ffn_cpu": 0.0}
+            if decode_steps:
+                worst.update(
+                    prefill_cache_cpu=0.0, prefill_cache_cpu_bf16_of_bound=0.0,
+                    decode_cpu=0.0, decode_ffn_cpu=0.0, decode_cache_cpu=0.0,
+                    decode_cache_cpu_bf16_of_bound=0.0, pos_equal=True,
+                    codes_max=0, codes_differ=0, codes_n=0)
+            attn = any(s_.kind in ("attn", "local", "cross")
+                       for s_ in layer_specs(c2))
+            if dtype == torch.float32 and attn:
+                # each attention sublayer against a float64 referee
+                worst.update(card_vs_f64=0.0, cpu_vs_f64=0.0)
+            moe = {"decisions": 0, "differ": 0}
+            caches, dec_logits = [], []
+            with torch.inference_mode():
+                x = lm.embed_in(c2, p2, tk, dtype, dev)
+                for spec, pg, pcg in model_layers(c2, p2, pc):
+                    kw = dict(positions=pos.to(dev), vision=vis, dtype=dtype)
+                    a, cache_g = lm.apply_mixer(c2, spec, pg, x,
+                                                max_seq=max_seq, **kw)
+                    a_off = lm.apply_mixer(c2, spec, pg, x, use_kernel=False,
+                                           **kw)
                     t0 = time.perf_counter()
-                    a64 = lm.apply_mixer(
-                        c2, spec, pd, x.cpu().to(f64), positions=pos,
-                        vision=None if vis_c is None else vis_c.to(f64),
-                        dtype=f64, use_kernel=False)
+                    a_cpu, cache_c = lm.apply_mixer(
+                        c2, spec, pcg, x.cpu(), positions=pos, vision=vis_c,
+                        dtype=dtype, max_seq=max_seq)
                     cpu_s += time.perf_counter() - t0
-                    worst["card_vs_f64"] = max(worst["card_vs_f64"],
-                                               rel(a64, a))
-                    worst["cpu_vs_f64"] = max(worst["cpu_vs_f64"],
-                                              rel(a64, a_cpu))
-                    del pd, a64
-                if spec.kind == "ssd":  # the mixer is the block
-                    x = a
-                    continue
-                y = lm.apply_ffn(c2, pg, a, dtype)
+                    worst["use_kernel_false"] = max(
+                        worst["use_kernel_false"], rel(a, a_off))
+                    worst["cpu"] = max(worst["cpu"], rel(a, a_cpu))
+                    if decode_steps:
+                        held_cache(worst, cache_diff(cache_g, cache_c, rtol),
+                                   "prefill_cache_cpu")
+                        caches.append(cache_g)
+                    if "card_vs_f64" in worst and spec.kind in (
+                            "attn", "local", "cross"):
+                        f64 = torch.float64
+                        pd = tree_map(lambda t: t.to(f64), {
+                            k_: v_ for k_, v_ in pcg.items() if k_ != "ffn"})
+                        t0 = time.perf_counter()
+                        a64 = lm.apply_mixer(
+                            c2, spec, pd, x.cpu().to(f64), positions=pos,
+                            vision=None if vis_c is None else vis_c.to(f64),
+                            dtype=f64, use_kernel=False)
+                        cpu_s += time.perf_counter() - t0
+                        worst["card_vs_f64"] = max(worst["card_vs_f64"],
+                                                   rel(a64, a))
+                        worst["cpu_vs_f64"] = max(worst["cpu_vs_f64"],
+                                                  rel(a64, a_cpu))
+                        del pd, a64
+                    if spec.kind == "ssd":  # the mixer is the block
+                        x = a
+                        continue
+                    x = ffn_pair(c2, pg, pcg, a, worst, moe, "ffn_cpu")
+                lg = lm.logits_out(c2, p2, x, dtype).float().cpu()
+                lc = lm.logits_out(c2, pc, x.cpu(), dtype).float()
+                worst["logits_cpu"] = float((lg - lc).abs().max()
+                                            / lc.abs().max())
+                ga = lm.forward(c2, p2, tk, device=dev).float().cpu()
                 t0 = time.perf_counter()
-                y_cpu = lm.apply_ffn(c2, pcg, a.cpu(), dtype)
+                ca = lm.forward(c2, pc, tk, device="cpu").float()
                 cpu_s += time.perf_counter() - t0
-                rows = None
-                if c2.is_moe:
-                    r_g, r_c = (blocks.moe_route(c2, q["ffn"], blocks.rms_norm(
-                        t, q["ffn"]["ln"], c2.norm_eps))
-                        for q, t in ((pg, a), (pcg, a.cpu())))
-                    same = ((r_g["top_i"].cpu() == r_c["top_i"])
-                            & (r_g["keep"].cpu() == r_c["keep"]))
-                    moe["decisions"] += same.numel()
-                    moe["differ"] += int((~same).sum())
-                    rows = same.all(-1).reshape(-1)
-                worst["ffn_cpu"] = max(worst["ffn_cpu"], rel(y, y_cpu, rows))
-                x = y
-            lg = lm.logits_out(c2, p2, x, dtype).float().cpu()
-            lc = lm.logits_out(c2, pc, x.cpu(), dtype).float()
-            worst["logits_cpu"] = float((lg - lc).abs().max()
-                                        / lc.abs().max())
-            ga = lm.forward(c2, p2, tk, device=dev).float().cpu()
-            t0 = time.perf_counter()
-            ca = lm.forward(c2, pc, tk, device="cpu").float()
-            cpu_s += time.perf_counter() - t0
-        cut[name] = dict(worst, end_to_end_cpu_rel=float(
-            (ga - ca).abs().max() / ca.abs().max()),
-            argmax_equal=float((ga.argmax(-1) == ca.argmax(-1)).float()
-                               .mean()),
-            last_token_equal=int(ga[0, -1].argmax()) == int(
-                ca[0, -1].argmax()))
-        if c2.is_moe:
-            cut[name]["moe_decisions"] = dict(
-                moe, share_differ=moe["differ"] / moe["decisions"])
-        del p2, pc, x
-        torch.cuda.empty_cache()
-    print(f"{cfg.name} at full width, {n_layers} layers, card vs CPU: "
-          f"{cut} ({cpu_s:.1f} s on the CPU)")
-    for name, rtol in LM_BLOCK_RTOL.items():
-        if name == "float32":
-            rtol = LM_BLOCK_RTOL_F32.get(cfg.name, rtol)
-        for what in ("use_kernel_false", "cpu", "ffn_cpu", "logits_cpu"):
-            check(cut[name][what] <= rtol, f"{cfg.name}, {name}, {n_layers} "
-                  f"layers at full width: each sublayer's (or the logits') "
-                  f"{what.replace('_', ' ')} output within {rtol} of its "
-                  f"largest magnitude ({cut[name][what]:.3g})")
-        if c2.is_moe:
-            share = cut[name]["moe_decisions"]["share_differ"]
-            check(share <= MOE_DECISIONS_DIFFER, f"{cfg.name}, {name}: the "
-                  f"card's and the CPU's routing decisions differ on "
-                  f"{share:.3%} of (token, k), at most "
-                  f"{MOE_DECISIONS_DIFFER:.0%}")
+                for t in range(decode_steps):
+                    at = LM_CPU_SEQ + t
+                    x = lm.embed_in(c2, p2, {"tokens": tokens[:1, at:at + 1]},
+                                    dtype, dev)
+                    layers = model_layers(c2, p2, pc)
+                    for (spec, pg, pcg), cache_g in zip(layers, caches):
+                        cache_c = tree_map(lambda t_: t_.cpu().clone(),
+                                           cache_g)
+                        a = lm.decode_mixer(c2, spec, pg, x, cache_g, at,
+                                            dtype=dtype)
+                        t0 = time.perf_counter()
+                        a_cpu = lm.decode_mixer(c2, spec, pcg, x.cpu(),
+                                                cache_c, at, dtype=dtype)
+                        cpu_s += time.perf_counter() - t0
+                        worst["decode_cpu"] = max(worst["decode_cpu"],
+                                                  rel(a, a_cpu))
+                        held_cache(worst, cache_diff(cache_g, cache_c, rtol),
+                                   "decode_cache_cpu")
+                        if spec.kind == "ssd":
+                            x = a
+                            continue
+                        x = ffn_pair(c2, pg, pcg, a, worst, moe,
+                                     "decode_ffn_cpu")
+                    dec_logits.append(lm.logits_out(c2, p2, x, dtype))
+                if decode_steps:  # reported: against the forward over
+                    # the prompt and the decode tokens (plain attention:
+                    # any length)
+                    n = LM_CPU_SEQ + decode_steps
+                    fw = lm.forward(c2, p2, dict(tk, tokens=tokens[:1, :n]),
+                                    dtype=dtype, use_kernel=False,
+                                    device=dev)[:, LM_CPU_SEQ:].float()
+                    dl = torch.cat(dec_logits, 1).float()
+                    worst["decode_vs_forward_rel"] = float(
+                        (dl - fw).abs().max() / fw.abs().max())
+                    worst["decode_argmax_equal_forward"] = float(
+                        (dl.argmax(-1) == fw.argmax(-1)).float().mean())
+            key = name if kv == "bf16" else f"{name}_kv_{kv}"
+            cut[key] = dict(worst, end_to_end_cpu_rel=float(
+                (ga - ca).abs().max() / ca.abs().max()),
+                argmax_equal=float((ga.argmax(-1) == ca.argmax(-1)).float()
+                                   .mean()),
+                last_token_equal=int(ga[0, -1].argmax()) == int(
+                    ca[0, -1].argmax()))
+            if c2.is_moe:
+                cut[key]["moe_decisions"] = dict(
+                    moe, share_differ=moe["differ"] / moe["decisions"])
+            del p2, pc, x, caches
+            torch.cuda.empty_cache()
+            print(f"{cfg.name} at full width, {n_layers} layers, {key}, card "
+                  f"vs CPU: {cut[key]} ({cpu_s:.1f} s on the CPU so far)")
+            check_cut(cfg.name, n_layers, key, cut[key], rtol, c2.is_moe)
     return cut, cpu_s
+
+
+def check_cut(arch: str, n_layers: int, key: str, res: dict, rtol: float,
+              is_moe: bool) -> None:
+    """cut_check's bounds on one (dtype, cache dtype) pass: every
+    sublayer, the logits and the float cache leaves within ``rtol`` of
+    their largest magnitude (bf16 leaves within one bf16 ulp of each
+    element over it), positions equal, int8 codes within one, and a MoE's
+    card and CPU decisions differing on at most MOE_DECISIONS_DIFFER."""
+    for what in ("use_kernel_false", "cpu", "ffn_cpu", "logits_cpu",
+                 "prefill_cache_cpu", "decode_cpu", "decode_ffn_cpu",
+                 "decode_cache_cpu"):
+        bound_ = rtol
+        if what == "decode_cpu" and key.startswith("float32"):
+            bound_ = max(rtol, LM_DECODE_RTOL_F32)
+        if what in res:
+            check(res[what] <= bound_, f"{arch}, {key}, {n_layers} layers "
+                  f"at full width: each sublayer's (or the logits' or the "
+                  f"cache's) {what.replace('_', ' ')} within {bound_} of "
+                  f"its largest magnitude ({res[what]:.3g})")
+    for what in ("prefill_cache_cpu_bf16_of_bound",
+                 "decode_cache_cpu_bf16_of_bound"):
+        if what in res:
+            check(res[what] <= 1.0, f"{arch}, {key}: the bf16 cache leaves "
+                  f"card vs CPU within one bf16 ulp of each element over "
+                  f"{rtol} of the largest magnitude ({res[what]:.3g} of it)")
+    if "pos_equal" in res:
+        check(res["pos_equal"] and res["codes_max"] <= 1, f"{arch}, {key}: "
+              f"the cache positions equal on the card and the CPU, int8 "
+              f"codes within one ({res['codes_max']})")
+    if is_moe:
+        share = res["moe_decisions"]["share_differ"]
+        check(share <= MOE_DECISIONS_DIFFER, f"{arch}, {key}: the card's "
+              f"and the CPU's routing decisions differ on {share:.3%} of "
+              f"(token, k), at most {MOE_DECISIONS_DIFFER:.0%}")
+
+
+# every decode run's rows of the e2e_decode line, and every decode run's
+# kernel launches (prefills excluded), added up for the kernels line
+E2E_DECODE: list = []
+DECODE_LAUNCHES: Counter = Counter()
+
+
+def ring_positions(W: int, last: int, dev) -> torch.Tensor:
+    """The positions a ring of W slots holds once positions 0..last are
+    written, position p in slot p % W (-1 where none was)."""
+    p = torch.arange(max(0, last - W + 1), last + 1, device=dev)
+    want = torch.full((W,), -1, dtype=torch.int32, device=dev)
+    want[p % W] = p.to(torch.int32)
+    return want
+
+
+def rings_hold(cfg, cache, last: int, dev) -> bool:
+    """Every self-attention ring of ``cache`` holds exactly the positions
+    it must once positions 0..last are written."""
+    rings = [grp["attn"]["pos"] for spec, grp in zip(cfg.pattern,
+                                                      cache["groups"])
+             if spec.kind in ("attn", "local")]
+    rings += [c["attn"]["pos"][None] for spec, c in zip(cfg.remainder,
+                                                        cache["rem"])
+              if spec.kind in ("attn", "local")]
+    return all(bool((r == ring_positions(r.shape[-1], last, dev)).all())
+               for r in rings)
+
+
+def kv_quant_rows(cfg, params, batch, dec, dev) -> list:
+    """The quantize kernel at the int8 KV cache's shapes, on layer 0's
+    own rope'd k and its v (a self-attention layer): the prefill's rows
+    (LM_BATCH x LM_SEQ x kv heads, head_dim) and one decode step's
+    (LM_BATCH x kv heads, head_dim), bit-equal to its plain version, and
+    timed beside it and its bound."""
+    from repro_torch.kernels.quant import quantize, quantize_ref
+    from repro_torch.kernels.quant import route as quant_route
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.template import tree_map
+
+    bf16 = torch.bfloat16
+    check(cfg.pattern[0].kind == "attn", "layer 0 is self-attention")
+    p0 = tree_map(lambda t: t[0], params["groups"][0])["attn"]
+    n_self = sum(s.kind in ("attn", "local") for s in layer_specs(cfg))
+    rows = []
+    with torch.inference_mode():
+        for per, toks, start in (("prefill", batch["tokens"], 0),
+                                 ("decode step", dec[:, :1], LM_SEQ)):
+            x = lm.embed_in(cfg, params, {"tokens": toks}, bf16, dev)
+            _, k, v = blocks.qkv_proj(cfg, p0, blocks.rms_norm(
+                x, p0["ln"], cfg.norm_eps), dtype=bf16)
+            at = torch.arange(start, start + x.shape[1], device=dev)[None]
+            k = blocks.rope(k, at, cfg.rope_theta)
+            for name, t in (("k", k), ("v", v)):
+                r2 = t.reshape(-1, cfg.head_dim).contiguous()
+                qq, qs = quantize(r2, 127)
+                torch.cuda.synchronize()
+                rq, rs = quantize_ref(r2, 127)
+                check(torch.equal(qq, rq) and torch.equal(qs, rs),
+                      f"quantize bit-equal to plain on {cfg.name}'s layer 0 "
+                      f"{per} {name} rows {tuple(r2.shape)} (the int8 KV "
+                      "cache)")
+            n_, d_ = r2.shape
+            qms, qhost = cuda_ms(lambda: quantize(r2, 127), 50)
+            qpms, qphost = cuda_ms(lambda: quantize_ref(r2, 127), 10)
+            qb_ms, qby = bound(3 * n_ * d_ + 4 * n_, 5 * n_ * d_)
+            rows.append({"shape": [n_, d_], "dtype": "bfloat16", "qmax": 127,
+                         "route": quant_route(n_, d_, r2.dtype,
+                                              r2.data_ptr() % 16 == 0),
+                         "count": 2 * n_self, "per": per, "ms": qms,
+                         "plain_ms": qpms, "bound_ms": qb_ms,
+                         "bound_by": qby, "host_ms": qhost,
+                         "plain_host_ms": qphost, "path": cfg.name})
+    return rows
+
+
+def decode_lm(cfg, params, batch, whole, dev, smi: str, argv, kernel: str,
+              n_kernel: int, *, steps: int, kv_dtypes) -> dict:
+    """Prefill and decode of ``cfg`` on the card with each KV cache dtype
+    of ``kv_dtypes``: ``lm.prefill`` of ``batch`` with room for ``steps``
+    more tokens (cold, then two warm runs: ``kernel`` ``n_kernel`` times,
+    quantize twice a self-attention layer with the int8 cache, no other
+    kernel; the last logits bit-equal to ``whole``, the forward's; every
+    self-attention ring holding exactly the prompt's last positions), then
+    ``steps`` teacher-forced ``lm.decode_step`` calls (no flash_attention
+    and no ssd, quantize twice a self-attention layer a step with the int8
+    cache; finite logits; every ring slid by one a step), timed step by
+    step; with ``--profile`` the device's busy share of four more steps.
+    The decode logits against the forward over the prompt and the decode
+    tokens are reported, not held (random weights amplify rounding). With
+    the int8 cache, ``kv_quant_rows``. Returns {"rows": the e2e_decode
+    rows, "kv_quant": quantize's KV-cache rows or []}."""
+    import dataclasses
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models.template import tree_map
+
+    n_self = sum(s.kind in ("attn", "local") for s in layer_specs(cfg))
+    max_seq = LM_SEQ + steps
+    # the decode tokens; the forward runs over the prompt and them, padded
+    # with more to a length the kernels take (flash_attention multiples of
+    # 128, ssd of the full configs' 256-token chunk)
+    ext = -(-(LM_SEQ + steps) // 256) * 256 - LM_SEQ
+    dec = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (LM_BATCH, ext)).astype(np.int32)
+    with torch.inference_mode():
+        full = lm.forward(cfg, params, dict(batch, tokens=np.concatenate(
+            [batch["tokens"], dec], 1)), device=dev)
+        # a copy: .float() of f32 (softcap) logits would be a view that
+        # keeps all of them
+        want = full[:, LM_SEQ:LM_SEQ + steps].clone().float()
+        del full
+    torch.cuda.empty_cache()
+    rows, kv_rows = [], []
+    for kv in kv_dtypes:
+        c = dataclasses.replace(cfg, kv_dtype=kv)
+        what = f"{cfg.name}, {kv} KV cache"
+        torch.cuda.reset_peak_memory_stats()
+        pre_s, cache = [], None
+        want_pre = {kernel: n_kernel, "quantize": 2 * n_self * (kv == "int8")}
+        for _ in range(3):
+            cache = None  # the last run's
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = lm.prefill(c, params, batch, max_seq=max_seq,
+                                     device=dev)
+            torch.cuda.synchronize()
+            pre_s.append(time.perf_counter() - t0)
+            pre_l = dict(LAUNCHES)
+            check(all(pre_l[k_] == want_pre.get(k_, 0) for k_ in pre_l),
+                  f"{what}: a prefill launches {kernel} {n_kernel} times and "
+                  f"quantize {want_pre['quantize']}, no other kernel "
+                  f"({pre_l})")
+            check(torch.equal(last, whole), f"{what}: prefill's last logits "
+                  "bit-equal to forward(logits_mode='last')")
+        # recurrentgemma-2b's local rings: positions 2048..4095 in order
+        check(rings_hold(c, cache, LM_SEQ - 1, dev), f"{what}: every "
+              "self-attention ring holds the prompt's last positions")
+        leaves = []
+        tree_map(leaves.append, cache)
+        cache_gib = sum(t.numel() * t.element_size() for t in leaves) / 2**30
+        reset_launches()
+        step_s, outs = [], []
+        for t in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, cache = lm.decode_step(c, params, cache, dec[:, t:t + 1],
+                                        LM_SEQ + t, device=dev)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            outs.append(out)
+            check(rings_hold(c, cache, LM_SEQ + t, dev), f"{what}: after "
+                  f"decode step {t} every ring holds the positions it must "
+                  "(slid by one)")
+        dec_l = dict(LAUNCHES)
+        DECODE_LAUNCHES.update(dec_l)
+        want_dec = {"quantize": 2 * n_self * steps * (kv == "int8")}
+        check(all(dec_l[k_] == want_dec.get(k_, 0) for k_ in dec_l),
+              f"{what}: {steps} decode steps launch no flash_attention and "
+              f"no ssd, quantize {want_dec['quantize']} times ({dec_l})")
+        got = torch.cat(outs, 1).float()
+        check(got.shape == (LM_BATCH, steps, cfg.vocab)
+              and bool(torch.isfinite(got).all()),
+              f"{what}: finite decode logits {(LM_BATCH, steps, cfg.vocab)}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = float(np.median(step_s[DECODE_COLD:]))
+        busy = None
+        if "--profile" in argv:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof_run:
+                for t in range(4):  # past max_seq: the rings wrap
+                    lm.decode_step(c, params, cache, dec[:, t:t + 1],
+                                   max_seq + t, device=dev)
+                torch.cuda.synchronize()
+            avg = prof_run.key_averages()
+            device_s = sum(e.self_device_time_total for e in avg
+                           if e.device_type == DeviceType.CUDA) / 1e6
+            busy = device_s / (4 * med)
+            print(f"profiled 4 decode steps of {what}: device time "
+                  f"{device_s * 1e3:.3f} ms, {busy:.1%} of four median steps")
+            print(avg.table(sort_by="self_cuda_time_total", row_limit=15))
+        rows.append({
+            "arch": cfg.name, "kv_dtype": kv, "layers": cfg.n_layers,
+            "batch": LM_BATCH, "prompt": LM_SEQ, "steps": steps,
+            "max_seq": max_seq, "card": smi,
+            "prefill_s": {"cold": pre_s[0],
+                          "warm_median": float(np.median(pre_s[1:])),
+                          "warm": pre_s[1:]},
+            "step_ms_median": med * 1e3,
+            "step_ms": [x * 1e3 for x in step_s],
+            "tokens_per_s": LM_BATCH / med, "cache_gib": cache_gib,
+            "peak_device_gib": peak, "device_busy": busy,
+            "launches": {"prefill": {k_: v_ for k_, v_ in pre_l.items()
+                                     if v_},
+                         "decode": {k_: v_ for k_, v_ in dec_l.items()
+                                    if v_}},
+            "logits_vs_forward_rel": float((got - want).abs().max()
+                                           / want.abs().max()),
+            "argmax_equal_forward": float((got.argmax(-1) == want.argmax(-1))
+                                          .float().mean())})
+        print(f"decode: {json.dumps(rows[-1])}")
+        del cache, outs, got, last
+        torch.cuda.empty_cache()
+        if kv == "int8":
+            kv_rows += kv_quant_rows(cfg, params, batch, dec, dev)
+    E2E_DECODE.extend(rows)
+    return {"rows": rows, "kv_quant": kv_rows}
 
 
 def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
              layer0, route: str | None = None, *, layers: int | None = None,
-             cpu_layers: int = LM_CPU_LAYERS) -> dict:
+             cpu_layers: int = LM_CPU_LAYERS, decode_steps: int = DECODE_STEPS,
+             kv_dtypes=("bf16",)) -> dict:
     """Split serving of ``arch`` at full width, at full depth or cut to
     ``layers`` layers, bf16 weights drawn on the card (cross-attention
     gates nonzero), LM_BATCH x LM_SEQ seeded tokens (and seeded vision
@@ -2061,9 +2487,11 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
     boundary activation against its plain version, the kernel path
     against ``use_kernel=False`` at batch 1 (reported: see LM_BLOCK_RTOL),
     ``layer0(cfg, params, tokens, dev)`` (the kernel on its first layer's
-    own inputs), and ``cut_check`` at ``cpu_layers`` layers. Returns the
-    numbers of the path's e2e line, the launches of its runs and the
-    boundary's quantize rows."""
+    own inputs), ``decode_lm`` (``decode_steps`` steps after a prefill of
+    the same batch, with each KV cache dtype of ``kv_dtypes``), and
+    ``cut_check`` at ``cpu_layers`` layers (with each of ``kv_dtypes``).
+    Returns the numbers of the path's e2e line, the launches of its runs,
+    the boundary's quantize rows and decode_lm's result."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2153,6 +2581,8 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
           "for bit")
     codec_rel = {c: float((runs[c]["out"].float() - whole.float()).abs()
                           .max() / whole.float().abs().max()) for c in runs}
+    dec = decode_lm(cfg, params, batch, whole, dev, smi, argv, kernel,
+                    n_kernel, steps=decode_steps, kv_dtypes=kv_dtypes)
 
     # stages of a warm run, and the codec's kernel on the boundary
     # activation against its plain version
@@ -2207,7 +2637,8 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
         del r["out"]
     torch.cuda.empty_cache()
 
-    cut, cpu_s = cut_check(cfg, dev, cpu_layers, tokens, vision)
+    cut, cpu_s = cut_check(cfg, dev, cpu_layers, tokens, vision,
+                           kv_dtypes=kv_dtypes)
     print(f"{arch} path: lm_split_infer({LM_BATCH} x {LM_SEQ}, {depth}, "
           f"split {split}) launches "
           f"{ {c: r['launches'] for c, r in runs.items()} }; codecs vs the "
@@ -2252,21 +2683,23 @@ def serve_lm(dev, smi: str, argv, arch: str, split: int, kernel: str,
         "device_busy": busy, "codec_vs_forward_rel": codec_rel,
         "batch1_use_kernel_false_rel": deep_off_rel,
         f"first_layer_{kernel}": real,
-        f"cut_to_{cpu_layers}_layers": cut}
+        f"cut_to_{cpu_layers}_layers": cut, "decode": dec["rows"]}
     return {"e2e": e2e, "launches": runs["fp16"]["launches"][kernel],
             "quantize_launches": runs["int8"]["launches"]["quantize"],
-            "boundary": qrows}
+            "boundary": qrows, "decode": dec}
 
 
 def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
     """The dense LM's split serving at granite-8b's full width and depth:
     the flash_attention kernel against its plain version, then
     ``serve_lm`` with the kernel on layer 0's own q, k, v, and the
-    ``e2e_lm`` line. Returns the flash_attention row of the kernels line
-    and the quantize kernel's LM boundary timing."""
+    ``e2e_lm`` line (decode: 64 steps with the bf16 and the int8 KV
+    cache). Returns the flash_attention row of the kernels line and the
+    quantize kernel's LM boundary and KV-cache timings."""
     attn_rows, timing = attention_kernel(dev)
     res = serve_lm(dev, smi, argv, LM_ARCH, LM_SPLIT, "flash_attention",
-                   attention_layer0)
+                   attention_layer0, decode_steps=LM_DECODE_STEPS,
+                   kv_dtypes=("bf16", "int8"))
     print(f"SDPA vs plain max |err| {timing['library_max_abs_err']:.3g}")
     print(json.dumps({"e2e_lm": dict(res["e2e"],
                                      attention_checks=attn_rows)}))
@@ -2280,7 +2713,8 @@ def lm_path(dev, smi: str, argv) -> tuple[dict, dict]:
                   "split inference",
            "path_shapes": [r for r in attn_rows if "path" in r]}
     return row, {"launches_lm": res["quantize_launches"],
-                 "lm_boundary": res["boundary"]}
+                 "lm_boundary": res["boundary"],
+                 "kv_cache_shapes": res["decode"]["kv_quant"]}
 
 
 def ssd_held(x, dt, A, Bm, Cm, L, what: str) -> dict:
@@ -2488,7 +2922,8 @@ def scout_check(dev) -> dict:
     cfg = dataclasses.replace(full, n_layers=SCOUT_LAYERS)
     tokens = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
-    cut, cpu_s = cut_check(cfg, dev, SCOUT_LAYERS, tokens, None)
+    cut, cpu_s = cut_check(cfg, dev, SCOUT_LAYERS, tokens, None,
+                           decode_steps=0)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          device=dev, dtype=torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
@@ -2658,9 +3093,11 @@ def main(argv: list[str]) -> int:
         return 0
     if "--moe" in argv:  # the MoE LM path alone
         moe_path(dev, smi, argv)
+        print(json.dumps({"e2e_decode": E2E_DECODE}))
         return 0
     if "--hybrid" in argv:  # the RG-LRU hybrid and the VLM paths alone
         hybrid_path(dev, smi, argv)
+        print(json.dumps({"e2e_decode": E2E_DECODE}))
         return 0
 
     # the main path's inputs: a mixed S0-S3 episode at the paper's width,
@@ -3076,6 +3513,14 @@ def main(argv: list[str]) -> int:
         print(prof_run.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=20))
 
+    # 13. decode on every LM path, and each kernel's decode launches
+    print(json.dumps({"e2e_decode": E2E_DECODE}))
+    for k in kernels:
+        k["launches_decode"] = DECODE_LAUNCHES[k["name"]]
+    check(DECODE_LAUNCHES["quantize"] > 0 and not any(
+        DECODE_LAUNCHES[k] for k in ("flash_attention", "ssd")),
+        f"decode launched quantize (the int8 KV cache) and no attention or "
+        f"ssd kernel ({dict(DECODE_LAUNCHES)})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

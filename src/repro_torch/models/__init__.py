@@ -12,3 +12,10 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda",
     ``dtype=torch.bfloat16`` draws them in bf16, as served."""
     return init_from_template(lm.model_template(cfg), generator,
                               device=device, dtype=dtype)
+
+
+def init_cache(cfg, batch: int, max_seq: int, *, device="cuda") -> dict:
+    """An empty LM decode cache for ``batch`` sequences of up to
+    ``max_seq`` positions, in the reference's tree and per-leaf dtypes (no
+    dtype override: the f32 states stay f32)."""
+    return lm.init_cache(cfg, batch, max_seq, device=device)

@@ -29,8 +29,21 @@ sequence as one chunk where the chunk does not divide S.
 
 The MoE feed-forward (``moe_block``), the RG-LRU scan (``rec_block``) and
 the cross-attention core are torch ops, as the reference leaves them to
-XLA. ``ssd_decode``, ``rec_decode`` and the decode caches are a later
-slice (``lm.apply_block``).
+XLA.
+
+Decode: a prefill (``attention_block(return_cache=True)``, ``rec_block``,
+``ssd_block``) returns each block's cache, whose layout the
+``*_cache_template`` functions give; ``attention_decode``, ``rec_decode``
+and ``ssd_decode`` take one token (B, 1, D) and a scalar position and
+write the block's cache in place. A self-attention cache is a ring of
+``W = min(window, max_seq)`` slots (``max_seq`` without a window): the
+token at position ``pos`` sits in slot ``pos % W``, and ``pos`` (W,)
+int32 holds each slot's position, -1 when empty. Its k and v are bf16,
+or int8 codes with f32 scales (``cfg.kv_dtype == "int8"``) through
+``core.boundary.rowwise_quant``, so the ``quantize`` kernel on a card. A
+cross block's cache is the projected vision k and v in bf16, never
+updated. The decode cores are torch ops, as the reference leaves them to
+XLA.
 """
 from __future__ import annotations
 
@@ -41,7 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import mha
 from repro_torch.kernels.ssd import ssd, ssd_ref
-from repro_torch.models.template import ParamSpec
+from repro_torch.models.template import ParamSpec, fill_from_template
 
 F32 = torch.float32
 DEFAULT_COMPUTE = torch.bfloat16
@@ -70,14 +83,29 @@ def _act(name):
 
 
 # ------------------------------------------------------------------ rope
+_FREQS: dict = {}
+
+
+def _rope_freqs(theta, half: int, device) -> torch.Tensor:
+    """exp(-log(theta) i / half) for i < half, f32, on ``device``: made
+    once a (theta, half, device), since the upload of theta to a card
+    waits for the card, once a rope call at every decode step."""
+    key = (float(theta), half, device)
+    if key not in _FREQS:
+        with torch.inference_mode(False):
+            log_theta = torch.log(torch.tensor(theta, dtype=F32,
+                                               device=device))
+            _FREQS[key] = torch.exp(
+                -log_theta * torch.arange(half, dtype=F32, device=device)
+                / half)
+    return _FREQS[key]
+
+
 def rope(x, positions, theta):
     """Half-split (not interleaved) rotary embedding in f32. x (..., S, H,
     dh), positions (..., S)."""
     half = x.shape[-1] // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=F32, device=x.device))
-    freqs = torch.exp(-log_theta
-                      * torch.arange(half, dtype=F32, device=x.device)
-                      / half)
+    freqs = _rope_freqs(theta, half, x.device)
     ang = positions[..., None].to(F32) * freqs  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
@@ -226,12 +254,9 @@ def qkv_proj(cfg, p, x, cross_kv=None, dtype=DEFAULT_COMPUTE):
     return q, k, v
 
 
-def _self_attention(cfg, q, k, v, *, window, positions, scale,
-                    use_kernel):
-    """Rope, then the core ``use_kernel`` and the shape choose."""
+def _self_attention(cfg, q, k, v, *, window, scale, use_kernel):
+    """The core ``use_kernel`` and the shape choose, on rope'd q and k."""
     S = q.shape[1]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
     if use_kernel:
         return mha(q, k, v, causal=cfg.causal, window=window)
     if window and S > window:
@@ -248,13 +273,29 @@ def _self_attention(cfg, q, k, v, *, window, positions, scale,
     return direct_attention(q, k, v, mask, scale)
 
 
+def _out_proj(p, o, dtype):
+    """o (B, S, H, dh) @ wo (H, dh, D) -> (B, S, D)."""
+    B, S = o.shape[:2]
+    wo = cast(p["wo"], dtype)
+    return torch.matmul(o.reshape(B * S, -1), wo.reshape(-1, wo.shape[-1])
+                        ).reshape(B, S, -1)
+
+
+def _gated(p, out, dtype):
+    """A cross block's output scaled by tanh(gate)."""
+    return torch.tanh(cast(p["gate"], F32)).to(dtype) * out
+
+
 def attention_block(cfg, p, x, *, kind, window, positions, cross_kv=None,
-                    dtype=DEFAULT_COMPUTE, use_kernel=True):
+                    dtype=DEFAULT_COMPUTE, use_kernel=True,
+                    return_cache=False, max_seq=None):
     """Full-sequence (train / prefill) attention sublayer: self-attention
     ("attn" or "local"), or cross-attention ("cross") to ``cross_kv`` (B,
     Sk, vision_dim), non-causal, without rope, through
     ``chunked_attention`` whatever ``use_kernel`` says, its output scaled
-    by tanh(gate). Returns the residual delta (B, S, D)."""
+    by tanh(gate). Returns the residual delta (B, S, D); with
+    ``return_cache``, (delta, the decode cache of this prefill, its ring
+    sized for ``max_seq`` positions, S if None)."""
     cross = kind == "cross"
     if cross and cross_kv is None:
         raise ValueError("a cross-attention block needs the vision "
@@ -265,15 +306,135 @@ def attention_block(cfg, p, x, *, kind, window, positions, cross_kv=None,
     if cross:
         o = chunked_attention(q, k, v, causal=False, window=0, scale=scale)
     else:
-        o = _self_attention(cfg, q, k, v, window=window, positions=positions,
-                            scale=scale, use_kernel=use_kernel)
-    B, S = x.shape[:2]
-    wo = cast(p["wo"], dtype)
-    out = torch.matmul(o.reshape(B * S, -1), wo.reshape(-1, wo.shape[-1])
-                       ).reshape(B, S, -1)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        o = _self_attention(cfg, q, k, v, window=window, scale=scale,
+                            use_kernel=use_kernel)
+    out = _out_proj(p, o, dtype)
     if cross:
-        out = torch.tanh(cast(p["gate"], F32)).to(dtype) * out
-    return out
+        out = _gated(p, out, dtype)
+    if not return_cache:
+        return out
+    if cross:
+        return out, {"k": cast(k, torch.bfloat16),
+                     "v": cast(v, torch.bfloat16)}
+    return out, _prefill_cache(cfg, k, v, window, max_seq or x.shape[1])
+
+
+def _ring(window, max_seq) -> int:
+    """A self-attention cache's slots: the window, at most ``max_seq``."""
+    return min(window, max_seq) if window else max_seq
+
+
+def _prefill_cache(cfg, k, v, window, max_seq):
+    """The ring of ``_ring(window, max_seq)`` slots (``attn_cache_template``)
+    filled from the prompt's rope'd k, v (B, S, KV, dh): its last ``keep =
+    min(W, S)`` tokens, the token at position t in slot t % W."""
+    Bsz, S = k.shape[:2]
+    cache = fill_from_template(attn_cache_template(cfg, Bsz, max_seq, window,
+                                                   "attn"), device=k.device)
+    W = cache["pos"].shape[0]
+    keep = min(W, S)
+    pos = torch.arange(S - keep, S, dtype=torch.int32, device=k.device)
+    slots = (pos % W).long()
+    cache["pos"][slots] = pos
+    for name, t in (("k", k[:, S - keep:]), ("v", v[:, S - keep:])):
+        if cfg.kv_dtype == "int8":
+            t, sc = _kv_quant(t)
+            cache[name + "_scale"][:, slots] = sc
+        cache[name][:, slots] = cast(t, cache[name].dtype)
+    return cache
+
+
+def _kv_quant(x):
+    """Symmetric int8 over head_dim, one scale a (token, head): the
+    boundary codec's formula (the quantize kernel on a card)."""
+    from repro_torch.core.boundary import rowwise_quant  # an import cycle
+    return rowwise_quant(x, 127)
+
+
+def _kv_deq(q, s, dtype):
+    return (q.to(F32) * s).to(dtype)
+
+
+def decode_attention(q, ck, cv, cpos, pos: int, *, window, scale):
+    """One query over a (ring) cache. q (B, 1, H, dh); ck, cv (B, W, KV,
+    dh); cpos (W,) int32, the position in each slot (-1 empty); a slot
+    counts where 0 <= cpos <= pos (and pos - cpos < window). f32 scores
+    and softmax; P rounded to the cache's dtype before P.V, as the
+    reference's."""
+    B, _, H, dh = q.shape
+    KV = ck.shape[2]
+    s = _gqa_scores(q.reshape(B, 1, KV, H // KV, dh), ck, scale)[..., 0, :]
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window:
+        valid &= pos - cpos < window
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)  # (B,KV,G,W)
+    o = torch.einsum("bkgw,bwkd->bkgd", cast(p, cv.dtype).to(F32),
+                     cv.to(F32))
+    return cast(o.reshape(B, 1, H, dh), q.dtype)
+
+
+def attention_decode(cfg, p, x, cache, pos: int, *, kind, window,
+                     dtype=DEFAULT_COMPUTE):
+    """One-token attention sublayer. x (B, 1, D). A self-attention block
+    ropes q and k at ``pos`` and writes k, v (or their int8 codes and
+    scales) and ``pos`` into slot ``pos % W`` of ``cache`` in place; an
+    int8 cache is dequantized whole to ``dtype`` for the core. A cross
+    block reads its cache (every slot valid) and scales by tanh(gate).
+    Returns the residual delta (B, 1, D)."""
+    pos = int(pos)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    scale = cfg.head_dim ** -0.5
+    if kind == "cross":  # q without its bias, as the reference's
+        q = _proj(h, p["wq"], dtype)
+        zeros = torch.zeros(cache["k"].shape[1], dtype=torch.int32,
+                            device=x.device)
+        o = decode_attention(q, cache["k"], cache["v"], zeros, pos,
+                             window=0, scale=scale)
+        return _gated(p, _out_proj(p, o, dtype), dtype)
+    q, k, v = qkv_proj(cfg, p, h, None, dtype)
+    at = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, at, cfg.rope_theta)
+    k = rope(k, at, cfg.rope_theta)
+    slot = pos % cache["k"].shape[1]
+    ck, cv = cache["k"], cache["v"]
+    if cfg.kv_dtype == "int8":
+        for name, t in (("k", k), ("v", v)):
+            codes, sc = _kv_quant(t)
+            cache[name][:, slot] = codes[:, 0]
+            cache[name + "_scale"][:, slot] = sc[:, 0]
+        ck = _kv_deq(ck, cache["k_scale"], dtype)
+        cv = _kv_deq(cv, cache["v_scale"], dtype)
+    else:
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+    cache["pos"][slot] = pos
+    o = decode_attention(q, ck, cv, cache["pos"], pos, window=window,
+                         scale=scale)
+    return _out_proj(p, o, dtype)
+
+
+def attn_cache_template(cfg, batch, max_seq, window, kind):
+    """A self-attention block's ring (see ``_prefill_cache``) or a cross
+    block's vision k, v (``vision_tokens`` rows, bf16). One card: no kv
+    repeat."""
+    KV, dh = cfg.kv_heads, cfg.head_dim
+    if kind == "cross":
+        W = cfg.vision_tokens
+        return {n: ParamSpec((batch, W, KV, dh), ("batch", None, "kv", None),
+                             torch.bfloat16, "zeros") for n in ("k", "v")}
+    W = _ring(window, max_seq)
+    int8 = cfg.kv_dtype == "int8"
+    kv_dt = torch.int8 if int8 else torch.bfloat16
+    axes = ("batch", "cache_seq", "kv", None)
+    t = {"k": ParamSpec((batch, W, KV, dh), axes, kv_dt, "zeros"),
+         "v": ParamSpec((batch, W, KV, dh), axes, kv_dt, "zeros"),
+         "pos": ParamSpec((W,), ("cache_seq",), torch.int32, "neg_ones")}
+    if int8:
+        for n in ("k_scale", "v_scale"):
+            t[n] = ParamSpec((batch, W, KV, 1), axes, F32, "zeros")
+    return t
 
 
 # ------------------------------------------------------------------ MLP
@@ -470,6 +631,30 @@ def rec_block(cfg, p, x, dtype=DEFAULT_COMPUTE):
     return out, {"h": hseq[:, -1], "conv": cast(conv_state, torch.bfloat16)}
 
 
+def rec_decode(cfg, p, x, cache, dtype=DEFAULT_COMPUTE):
+    """The RG-LRU sublayer for one token x (B, 1, D): the conv over the
+    carried inputs, then h = a h_prev + gated in f32. Writes {"h",
+    "conv"} of ``cache`` in place; returns the residual delta."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    xb = _proj(h, p["wx"], dtype)
+    yb = _act(cfg.act)(_proj(h, p["wy"], dtype))
+    xc, conv_state = _causal_conv(xb, cast(p["conv_w"], dtype),
+                                  cast(p["conv_b"], dtype), cache["conv"])
+    a, gated = _rglru_gates(p, xc, dtype)
+    hnew = a * cache["h"][:, None] + gated  # (B, 1, W) f32
+    out = _proj(cast(hnew, dtype) * yb, p["wo"], dtype)
+    cache["h"].copy_(hnew[:, 0])
+    cache["conv"].copy_(conv_state)
+    return out
+
+
+def rec_cache_template(cfg, batch):
+    W, cw = cfg.lru_width, cfg.conv1d_width
+    return {"h": ParamSpec((batch, W), ("batch", "ff"), F32, "zeros"),
+            "conv": ParamSpec((batch, cw - 1, W), ("batch", None, "ff"),
+                              torch.bfloat16, "zeros")}
+
+
 # ------------------------------------------------------------------ Mamba2 SSD
 def ssd_template(cfg):
     D, Din, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
@@ -493,19 +678,21 @@ def ssd_template(cfg):
     }
 
 
-def _ssd_inputs(cfg, p, x, dtype):
-    """The mixer's inputs over a full sequence: z (B, S, Din), x (B, S, nh,
+def _ssd_inputs(cfg, p, x, dtype, conv_state=None):
+    """The mixer's inputs over a sequence: z (B, S, Din), x (B, S, nh,
     hd), B and C (B, S, G, N) in ``dtype`` after the conv and silu; dt (B,
     S, nh) = softplus(h wdt + dt_bias) and A = -exp(A_log) (nh,) in f32;
-    and the conv states {"x", "B", "C"}."""
+    and the conv states {"x", "B", "C"}, each conv starting from
+    ``conv_state`` (a decode cache's) or from zeros."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     z = _proj(h, p["wz"], dtype)
     u = _proj(h, p["wdt"], dtype).to(F32) + cast(p["dt_bias"], F32)
     dt = _softplus(u)
     conv, states = {}, {}
     for name in ("x", "B", "C"):
-        t, states[name] = _causal_conv(_proj(h, p["w" + name], dtype),
-                                       cast(p["conv_" + name], dtype), 0.0)
+        t, states[name] = _causal_conv(
+            _proj(h, p["w" + name], dtype), cast(p["conv_" + name], dtype),
+            0.0, None if conv_state is None else conv_state[name])
         conv[name] = F.silu(t)
     Bsz, S = x.shape[:2]
     nh, G, N = cfg.d_inner // cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
@@ -534,3 +721,42 @@ def ssd_block(cfg, p, x, dtype=DEFAULT_COMPUTE, use_kernel=True):
     cache = {"s": s_last, "conv": {k: cast(v, torch.bfloat16)
                                    for k, v in conv_states.items()}}
     return _proj(y, p["wo"], dtype), cache
+
+
+def ssd_decode(cfg, p, x, cache, dtype=DEFAULT_COMPUTE):
+    """The Mamba-2 mixer for one token x (B, 1, D): the convs over the
+    carried inputs, then s = exp(dt A) s + B (dt x) and y = C.s + Dskip x
+    in f32, the gated norm and ``wo``. Writes {"s", "conv"} of ``cache``
+    in place; returns the residual delta."""
+    z, xh, Bg, Cg, dt, A, new_conv = _ssd_inputs(cfg, p, x, dtype,
+                                                  cache["conv"])
+    Bsz, _, nh, hd = xh.shape
+    G = Bg.shape[2]
+    hpg = nh // G
+    dA = torch.exp(dt[:, 0] * A)  # (B, nh)
+    xf = cast(xh[:, 0], F32).reshape(Bsz, G, hpg, hd)
+    duh = dt[:, 0].reshape(Bsz, G, hpg, 1) * xf
+    s = cache["s"] * dA.reshape(Bsz, G, hpg, 1, 1) + torch.einsum(
+        "bgn,bghd->bghdn", cast(Bg[:, 0], F32), duh)
+    y = torch.einsum("bgn,bghdn->bghd", cast(Cg[:, 0], F32), s)
+    y = y + cast(p["Dskip"], F32).reshape(1, G, hpg, 1) * xf
+    y = rms_norm(cast(y.reshape(Bsz, 1, nh * hd), dtype) * F.silu(z),
+                 p["norm"], cfg.norm_eps)
+    cache["s"].copy_(s)
+    for name, st in new_conv.items():
+        cache["conv"][name].copy_(st)
+    return _proj(y, p["wo"], dtype)
+
+
+def ssd_cache_template(cfg, batch):
+    nh = cfg.d_inner // cfg.ssm_headdim
+    G, N, hd = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    cw = cfg.conv1d_width
+    return {
+        "s": ParamSpec((batch, G, nh // G, hd, N),
+                       ("batch", None, "heads", None, None), F32, "zeros"),
+        "conv": {n: ParamSpec((batch, cw - 1, w), ("batch", None, ax),
+                              torch.bfloat16, "zeros")
+                 for n, w, ax in (("x", cfg.d_inner, "ff"),
+                                  ("B", G * N, None), ("C", G * N, None))},
+    }

@@ -44,12 +44,15 @@ def stack_specs(tree, n: int, axis_name: str = "layers"):
         tree)
 
 
+_FILLS = {"zeros": 0, "ones": 1, "neg_ones": -1}
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
                dtype: torch.dtype) -> torch.Tensor:
     dev = generator.device
-    if spec.init in ("zeros", "ones", "neg_ones"):
-        fill = {"zeros": 0.0, "ones": 1.0, "neg_ones": -1.0}[spec.init]
-        return torch.full(spec.shape, fill, dtype=dtype, device=dev)
+    if spec.init in _FILLS:
+        return torch.full(spec.shape, _FILLS[spec.init], dtype=dtype,
+                          device=dev)
     if spec.init == "normal":
         std = spec.scale
     elif spec.init == "embed":
@@ -83,3 +86,17 @@ def init_from_template(tree, generator: torch.Generator, *, device,
 
     return tree_map(leaf, tree)
 
+
+def fill_from_template(tree, *, device):
+    """A template of constant leaves (zeros, ones, neg_ones) as tensors on
+    ``device``, each in its spec's own dtype: a decode cache, whose f32
+    state and int32 positions keep their types."""
+    dev = resolve_device(device)
+
+    def leaf(spec):
+        if spec.init not in _FILLS:
+            raise ValueError(f"{spec.init!r} is not a constant init")
+        return torch.full(spec.shape, _FILLS[spec.init], dtype=spec.dtype,
+                          device=dev)
+
+    return tree_map(leaf, tree)

@@ -21,6 +21,10 @@ tuples, the same layouts (the MoE's ``router`` and (E, ...) expert
 weights, the RG-LRU's, a cross block's scalar ``gate``, 0-d in ``rem``
 and (n,) stacked in ``groups``), optionally cast (``dtype=torch.bfloat16``
 as served).
+``lm_cache_from_reference`` takes the reference's LM decode cache
+(``jax.tree.map(np.asarray, cache)`` of a prefill's or ``init_cache``'s)
+with its leaves' own types: bf16 and int8 k/v, int32 positions, f32
+scales and states.
 ``load_reference_checkpoint`` reads the reference checkpoint format
 directly — a ``manifest.json`` plus one ``.npy`` per leaf, keyed by
 ``jax.tree_util.keystr`` paths such as ``['lstm']['wx']`` — without JAX.
@@ -106,6 +110,28 @@ def lm_params_from_reference(tree: dict, *, device="cuda",
     def leaf(node):
         t = _tensor(node, np.float32, dev)
         return t if dtype is None else t.to(dtype)
+
+    return tree_map(leaf, tree)
+
+
+_CACHE_DTYPES = ("float32", "int32", "int8")
+
+
+def lm_cache_from_reference(tree: dict, *, device="cuda") -> dict:
+    """The reference's LM decode cache as numpy arrays -> the same tree of
+    tensors on ``device``, each leaf in its own type (bf16 carried bit for
+    bit)."""
+    dev = resolve_device(device)
+
+    def leaf(node):
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":  # numpy has no bf16: its bits
+            return torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16).to(dev)
+        if arr.dtype.name not in _CACHE_DTYPES:
+            raise TypeError(f"a cache leaf is bf16, f32, int8 or int32, got "
+                            f"{arr.dtype}")
+        return torch.from_numpy(arr.copy()).to(dev)
 
     return tree_map(leaf, tree)
 

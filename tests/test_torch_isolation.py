@@ -28,12 +28,14 @@ from repro_torch.sim import (SchedulerConfig, cell_load,
                              coupled_interference_mw, estimate_fleet,
                              ring_coupling, run_controllers, run_scheduled,
                              scheduler_init, simulate_cells, simulate_fleet)
-from repro_torch.weights import (lm_params_from_reference,
+from repro_torch.weights import (lm_cache_from_reference,
+                                 lm_params_from_reference,
                                  params_from_reference,
                                  vgg_params_from_reference)
 from repro_torch.configs import get_config
 from repro_torch.core.splitting import lm_head, lm_split_infer, lm_tail
-from repro_torch.models import init_params
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import init_cache, init_params
 from repro_torch.models import lm
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -58,7 +60,8 @@ MODULES = [
     "repro_torch.sim.cells", "repro_torch.configs",
     "repro_torch.configs.base", "repro_torch.kernels.flash_attention",
     "repro_torch.models.blocks", "repro_torch.models.lm",
-    "repro_torch.models.template"]
+    "repro_torch.models.template", "repro_torch.launch",
+    "repro_torch.launch.steps"]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -102,6 +105,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     lcfg = get_config("granite-8b").reduced()
     lp = init_params(lcfg, torch.Generator().manual_seed(0), device="cpu")
     tok = {"tokens": np.zeros((1, 16), np.int32)}
+    lcache = init_cache(lcfg, 1, 20, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: simulate_fleet(ep, table, prof, cfg),
@@ -145,6 +149,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: lm_split_infer(lcfg, lp, tok, 1),
         lambda: lm_params_from_reference({"embed": np.zeros((2, 2),
                                                             np.float32)}),
+        lambda: lm.prefill(lcfg, lp, tok, max_seq=20),
+        lambda: make_prefill_step(lcfg, 20)(lp, tok),
+        lambda: init_cache(lcfg, 1, 20),
+        lambda: lm.decode_step(lcfg, lp, lcache, tok["tokens"][:, :1], 16),
+        lambda: make_decode_step(lcfg)(lp, lcache, tok["tokens"][:, :1], 16),
+        lambda: lm_cache_from_reference({"pos": np.zeros(2, np.int32)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):

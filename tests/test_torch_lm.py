@@ -216,26 +216,49 @@ def test_forward_matches_reference(name, dtype, use_kernel):
             <= 1e-6 * got.abs().max()), name
 
 
+def _prefill_and_decode(cfg, params, batch):
+    """A prefill of ``batch`` with room for two more tokens, then two
+    decode steps: prefill's last logits equal the forward's, and each
+    step's logits are finite."""
+    S = batch["tokens"].shape[1]
+    last, cache = lm.prefill(cfg, params, batch, max_seq=S + 2,
+                             device="cpu")
+    assert torch.equal(last, lm.forward(cfg, params, batch,
+                                        logits_mode="last", device="cpu"))
+    for t in range(2):
+        out, again = lm.decode_step(cfg, params, cache,
+                                    batch["tokens"][:, t:t + 1], S + t,
+                                    device="cpu")
+        assert again is cache
+        assert out.shape == (2, 1, cfg.vocab) and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("name", NEW_BLOCKS)
 def test_new_blocks_run_and_decode_still_raises(name):
-    """The MoE, RG-LRU and cross-attention configs are refused nowhere
-    but in decode, a later slice (ROADMAP.md item 20)."""
+    """The MoE, RG-LRU and cross-attention configs run the forward, a
+    prefill and decode steps (their parity: test_torch_decode.py); the
+    full-sequence forward still refuses mode="decode", which
+    ``decode_step`` runs."""
     cfg = get_config(name).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     lm.check_ported(cfg)
     batch = _batch(cfg)
-    with pytest.raises(NotImplementedError, match="queue item 20"):
+    with pytest.raises(ValueError, match="decode_step"):
         lm.forward(cfg, params, batch, mode="decode", device="cpu")
     out = lm.forward(cfg, params, batch, mode="prefill", logits_mode="last",
                      device="cpu")
     assert out.shape == (2, 1, cfg.vocab) and torch.isfinite(out).all()
+    _prefill_and_decode(cfg, params, batch)
 
 
 def test_decode_mode_raises():
+    """forward's mode="decode" and an unknown logits_mode raise; decode
+    itself runs through ``lm.decode_step``."""
     cfg = get_config("granite-8b").reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 20"):
+    with pytest.raises(ValueError, match="decode_step"):
         lm.forward(cfg, params, _batch(cfg), mode="decode", device="cpu")
     with pytest.raises(ValueError, match="logits_mode"):
         lm.forward(cfg, params, _batch(cfg), logits_mode="first",
                    device="cpu")
+    _prefill_and_decode(cfg, params, _batch(cfg))
