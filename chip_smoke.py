@@ -118,7 +118,35 @@ In order:
      4 decode steps sublayer by sublayer; then the ``e2e_decode`` line
      (prefill s, the median step, tokens/s, cache and peak GiB, with
      ``--profile`` the device's busy share over four steps);
- 14. prints the ``{"kernels": [...]}`` line (ssd's row with its three
+ 14. offline training on the card: ``train_estimator`` of
+     ``EstimatorConfig()`` (the paper's width, dropout 0.1) on Table II's
+     low-load data (benchmarks/table2_estimator.py's recipe at n_sc 3276:
+     624 samples, 400 steps at batch 24; 256 to evaluate), after one step
+     from one init, minibatch and dropout mask on the card and on the CPU
+     (the loss, every gradient leaf, and one AdamW update of the card's
+     gradients on both devices, held); lstm_scan once a step (its autograd
+     Function ``LstmScan``: the kernel forward, the plain version's
+     backward) plus predict's; Table II's rows (R^2, RMSE) beside the ridge
+     and MLP baselines on the 7- and 15-KPM summaries; the median of 20
+     synchronised warm steps (steps/s, samples/s; ``--profile``: a step's
+     device ms); the peak memory; then ``train_ssm`` of ``SSMConfig()`` on
+     the cells path's episode (the plain recurrence: the reference cannot
+     differentiate its ssd kernel) evaluated through the fused ssd kernel
+     against the plain recurrence; an ``e2e_train`` line;
+ 15. the slot pool under churn: benchmarks/fleet.py's churn cell at 4096
+     slots (churn fraction 0.25, mean dwell 3.4, diurnal amplitude 0.25,
+     T 40) on ground truth and with the pf scheduler over 4 cells (segsum
+     once a period), then 128 slots x 16 periods driven by step 14's
+     trained estimator (``fused=True``: featurize, lstm_scan) over every
+     session's full-width trace, each cold and three times warm (UE-steps
+     /s, p99 admission latency, occupancy, launches) and against the port
+     on the CPU (occupancy and lifecycle equal; splits equal, pf's on at
+     least 99.9% of the served slot-periods; the estimator pool's
+     estimates for the first sessions, and its splits against the CPU pool
+     fed the card's estimates); and the full-pool degenerate schedule (32
+     sessions for all of T 20) against the batch engine: splits bit-equal,
+     metrics within 1e-6; an ``e2e_churn`` line;
+ 16. prints the ``{"kernels": [...]}`` line (ssd's row with its three
      routes, each at its path's shape; quantize's and lstm_scan_q's with
      the int8 path's calls of each route, lstm_scan_q's with its design
      floor; lstm_scan's with the fp32 path's calls of each route, the
@@ -128,8 +156,9 @@ In order:
      flash_attention's with its f32 kernel's time, each LM path's
      launches and ``scaled_dot_product_attention`` at each path's shape,
      quantize's with each LM path's boundary and the int8 KV cache's
-     shapes; every row with its decode launches) and, last,
-     ``{"ok": true, "device": {...}}``.
+     shapes; every row with its decode launches, and with its launches in
+     step 14's training (``launches_train``) and step 15's pools
+     (``launches_churn``)) and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero. Without a card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -156,6 +185,9 @@ result.
     python3 chip_smoke.py --hybrid     # only the hybrid and VLM paths
                                        # (steps 11-12, their decode; no
                                        # ok line)
+    python3 chip_smoke.py --train      # only training and churn (steps
+                                       # 14-15, the cells episode built
+                                       # as step 6 builds it; no ok line)
 """
 from __future__ import annotations
 
@@ -1008,6 +1040,22 @@ def int8_kernels(dev, smi: str) -> dict:
             "lstm_scan_q": lrow, "card": smi}
 
 
+def cells_episode():
+    """The cells path's episode (without IQ) and its (UEs, T + WINDOW)
+    handover grid, drawn from SEED."""
+    from repro_torch.channel import scenarios as sc
+    from repro_torch.sim import (attach_ring, build_cells_episode,
+                                 handover_grid, ring_coupling)
+    n, C = CELLS_UES, CELLS_C
+    rng = np.random.default_rng(SEED)
+    grid = handover_grid(attach_ring(n, C), CELLS_T + sc.WINDOW, 0.25, rng,
+                         n_cells=C)
+    names = np.asarray(sc.SCENARIOS)[np.arange(n) % len(sc.SCENARIOS)]
+    ep = build_cells_episode(names, CELLS_T, rng, grid,
+                             coupling=ring_coupling(C), include_iq=False)
+    return ep, grid
+
+
 def cells_path(dev, prof, table, cfg, fixed, argv, floor: dict) -> list:
     """The multi-cell, PRB-scheduled fleet driven by the recurrent SSM
     estimator at the repo's cells sweep size (benchmarks/fleet.py
@@ -1015,8 +1063,9 @@ def cells_path(dev, prof, table, cfg, fixed, argv, floor: dict) -> list:
     against their plain versions, the path's runs with their launch
     counts, the whole fleet against the port on the CPU, timings and the
     ``e2e_cells`` line. Returns segsum's row of the kernels line (beside
-    the launch floor ``floor``) and the numbers of ssd's fused route
-    there."""
+    the launch floor ``floor``), the numbers of ssd's fused route there,
+    and the path's episode (step 14 trains the recurrent estimator on
+    it)."""
     from repro_torch.channel import scenarios as sc
     from repro_torch.estimator.ssm import (SSMConfig, episode_features,
                                            init_ssm, reduce_forecasts,
@@ -1024,22 +1073,16 @@ def cells_path(dev, prof, table, cfg, fixed, argv, floor: dict) -> list:
     from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
     from repro_torch.kernels.segsum import (segment_reduce_batched,
                                             segment_reduce_ref)
-    from repro_torch.sim import (SchedulerConfig, attach_ring,
-                                 build_cells_episode, cell_load,
-                                 estimate_fleet, handover_grid,
-                                 ring_coupling, run_scheduled,
-                                 simulate_cells, split_metrics)
+    from repro_torch.sim import (SchedulerConfig, cell_load, estimate_fleet,
+                                 run_scheduled, simulate_cells,
+                                 split_metrics)
     from repro_torch.channel.throughput import prb_scaled_mbps
     from repro_torch.core.pso import TP_CLIP_MBPS
 
     W = sc.WINDOW
     n, T, C = CELLS_UES, CELLS_T, CELLS_C
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    grid = handover_grid(attach_ring(n, C), T + W, 0.25, rng, n_cells=C)
-    names = np.asarray(sc.SCENARIOS)[np.arange(n) % len(sc.SCENARIOS)]
-    ep = build_cells_episode(names, T, rng, grid, coupling=ring_coupling(C),
-                             include_iq=False)
+    ep, grid = cells_episode()
     c = SSMConfig(use_kernel=True, forecast_horizon=3,
                   forecast_policy="discount")
     params = init_ssm(c, torch.Generator().manual_seed(SEED), device="cpu")
@@ -1299,6 +1342,7 @@ def cells_path(dev, prof, table, cfg, fixed, argv, floor: dict) -> list:
          "launches": launches["ssd"], "max_abs_err": ssd_err[0],
          "state_max_abs_err": ssd_err[1], "library_ms": None,
          "library": "none (no one call)", "shapes": ssd_rows[1:]},
+        ep,
     ]
 
 
@@ -2999,6 +3043,515 @@ def hybrid_path(dev, smi: str, argv) -> tuple[dict, dict]:
     return hyb, vlm
 
 
+# step 14, training: Table II's low-load data at the paper's width
+# (benchmarks/table2_estimator.py: seed 42, 150 / 60 samples a scenario,
+# episodes of 12 / 8 periods, 400 steps at batch 24)
+TRAIN_N, EVAL_N, TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 150, 60, 400, 24, 1e-3
+TRAIN_TIMED_STEPS = 20  # synchronised warm steps, timed one by one
+# the card against the port on the CPU from one init, the first minibatch
+# and one injected dropout mask: the loss (relative), each gradient leaf
+# and one AdamW update of the card's gradients on both devices (of each
+# leaf's largest magnitude). The same step with a TF32 backward must fail
+# the gradient bound, which sits between the two (on an H100: f32 2.8e-6,
+# the TF32 backward 9.5e-4; cuDNN's weight gradients sum with atomics, so
+# the f32 value moves from run to run)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_UPDATE_RTOL = 1e-5, 3e-5, 1e-6
+# the recurrent estimator trained on the cells path's episode: its first
+# SSM_TRAIN_UES UEs, the rest to evaluate
+SSM_TRAIN_UES, SSM_STEPS, SSM_BATCH = 768, 600, 32
+# Table II (the paper): (R^2, RMSE Mbps) of rows A, B, C
+TABLE2_PAPER = {"A": (0.3160, 10.7748), "B": (0.7845, 6.0478),
+                "C": (0.9636, 2.4839)}
+# step 15, churn: benchmarks/fleet.py's churn cell at the full sweep's
+# largest size (4096 slots, churn fraction 0.25, T 40: mean dwell
+# CHURN_OCCUPANCY / frac by Little's law, diurnal amplitude 0.25 over the
+# horizon); the estimator-driven pool of CHURN_EST_SLOTS slots over
+# CHURN_EST_T periods; the full-pool degenerate schedule of
+# benchmarks/fleet.py::check_churn_full_pool (32 sessions, T 20)
+CHURN_SLOTS, CHURN_FRAC, CHURN_T, CHURN_OCCUPANCY = 4096, 0.25, 40, 0.85
+CHURN_CELLS = 4
+CHURN_EST_SLOTS, CHURN_EST_T = 128, 16
+FULL_POOL_N, FULL_POOL_T = 32, 20
+# splits of the pf pool on the card equal to the CPU's on at least this
+# share of the served cells (the shares' sums round differently on the
+# segsum kernel, as on the cells path)
+CHURN_PF_SPLITS_EQUAL = 0.999
+
+
+def leaf_rel(card, cpu) -> float:
+    """The largest, over the leaves of two trees of tensors, of
+    max|card - cpu| over the CPU leaf's largest magnitude."""
+    from repro_torch.optim import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        b = b.double()
+        diff = (a.cpu().double() - b).abs().max()
+        worst = max(worst, float(diff / max(float(b.abs().max()), 1e-30)))
+    return worst
+
+
+def tf32_backward_grads(e, params, data, keep) -> list:
+    """The gradient leaves of one training step with the forward in full
+    f32 and the backward with TF32 allowed (cuDNN's convolutions and the
+    f32 matrix products), the precision loss the gradient bound must
+    catch."""
+    from repro_torch.estimator.model import full_f32
+    from repro_torch.estimator.train import estimator_loss
+    from repro_torch.optim import tree_leaves
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    tree = {g: {k: next(it) for k in sorted(params[g])}
+            for g in sorted(params)}
+    with full_f32(leaves[0].device):
+        loss = estimator_loss(e, tree, data, keep)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            return list(torch.autograd.grad(loss, leaves))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def device_busy(fn, n: int, wall_s: float) -> tuple[float, float]:
+    """(device ms per call, busy share of ``wall_s`` a call) of ``n`` calls
+    of ``fn`` under torch.profiler; prints the profile's table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_run:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avg = prof_run.key_averages()
+    device_s = sum(e.self_device_time_total for e in avg
+                   if e.device_type == DeviceType.CUDA) / 1e6 / n
+    print(avg.table(sort_by="self_cuda_time_total", row_limit=20))
+    return device_s * 1e3, device_s / wall_s
+
+
+def train_path(dev, argv, cells_ep) -> tuple[dict, Counter, dict]:
+    """Step 14: offline training on the card. The windowed estimator at the
+    paper's width on Table II's low-load data (the card against the port
+    on the CPU for one step first), Table II's rows beside the ridge and
+    MLP baselines, timed steps, and the recurrent estimator trained on the
+    cells path's episode and evaluated through the fused ssd kernel.
+    Returns the ``e2e_train`` numbers, the kernels' launches and the
+    trained estimator's parameters on the CPU."""
+    import dataclasses
+    from repro_torch.channel import scenarios as sc
+    from repro_torch.estimator.baselines import (constant_floor,
+                                                 mlp_fit_predict,
+                                                 persistence_rmse, ridge_fit,
+                                                 ridge_predict,
+                                                 summary_features)
+    from repro_torch.estimator.model import EstimatorConfig, init_estimator
+    from repro_torch.estimator.ssm import SSMConfig, episode_features
+    from repro_torch.estimator.train import (BATCH_KEYS, estimator_loss,
+                                             loss_and_grads,
+                                             make_indexed_step, r2_rmse,
+                                             ssm_predict, to_device,
+                                             train_estimator, train_ssm)
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    from repro_torch.optim import AdamW
+
+    e = EstimatorConfig()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(42)
+    tr = sc.gen_dataset(TRAIN_N, rng, episode_len=12, low_load_only=True,
+                        n_sc=e.n_sc)
+    te = sc.gen_dataset(EVAL_N, rng, episode_len=8, low_load_only=True,
+                        n_sc=e.n_sc)
+    print(f"train setup: Table II low-load data at n_sc {e.n_sc}: "
+          f"{len(tr['tp'])} train and {len(te['tp'])} eval samples "
+          f"({tr['iq'].nbytes / 2**20:.0f} MiB of f32 IQ to train): "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the card against the port on the CPU: one init, train_estimator's
+    # first minibatch, one dropout mask drawn on the host
+    cpu = torch.device("cpu")
+    params = init_estimator(e, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    gparams = {g: {k: v.to(dev) for k, v in d.items()}
+               for g, d in params.items()}
+    idx = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, len(tr["tp"]), TRAIN_BATCH))
+    keep = torch.rand((TRAIN_BATCH, e.hidden),
+                      generator=torch.Generator().manual_seed(SEED)) \
+        < 1 - e.dropout
+    first, data = {}, {}
+    for name, d, p in (("card", dev, gparams), ("cpu", cpu, params)):
+        data[name] = to_device({k: tr[k][idx.numpy()] for k in BATCH_KEYS},
+                               BATCH_KEYS, d)
+        first[name] = loss_and_grads(
+            lambda q: estimator_loss(e, q, data[name], keep.to(d)), p)
+    torch.cuda.synchronize()
+    loss_card, loss_cpu = (float(first[k][0]) for k in ("card", "cpu"))
+    loss_rel = abs(loss_card - loss_cpu) / loss_cpu
+    grad_rel = leaf_rel(first["card"][1], first["cpu"][1])
+    tf32_rel = leaf_rel(tf32_backward_grads(e, gparams, data["card"],
+                                            keep.to(dev)), first["cpu"][1])
+    opt = AdamW(lr=TRAIN_LR, weight_decay=1e-4, clip_norm=1.0)
+    upd_card, _, _ = opt.update(first["card"][1], opt.init(gparams), gparams)
+    upd_cpu, _, _ = opt.update(
+        {g: {k: v.cpu() for k, v in d.items()}
+         for g, d in first["card"][1].items()}, opt.init(params), params)
+    upd_rel = leaf_rel(upd_card, upd_cpu)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"first loss card {loss_card} vs CPU {loss_cpu} ({loss_rel:.3g})")
+    check(grad_rel <= TRAIN_GRAD_RTOL,
+          f"gradients card vs CPU within {TRAIN_GRAD_RTOL} of each leaf's "
+          f"largest magnitude ({grad_rel:.3g})")
+    check(tf32_rel > TRAIN_GRAD_RTOL,
+          f"a TF32 backward fails the gradient bound ({tf32_rel:.3g})")
+    check(upd_rel <= TRAIN_UPDATE_RTOL,
+          f"AdamW of the card's gradients, card vs CPU within "
+          f"{TRAIN_UPDATE_RTOL} of each leaf ({upd_rel:.3g})")
+    print(f"train step, card vs CPU (one init, one mask): loss {loss_card:.6g}"
+          f" vs {loss_cpu:.6g} (rel {loss_rel:.3g}, bound "
+          f"{TRAIN_LOSS_RTOL}); gradients max rel-to-largest {grad_rel:.3g} "
+          f"(bound {TRAIN_GRAD_RTOL}; with a TF32 backward {tf32_rel:.3g}); "
+          f"updated parameters max rel {upd_rel:.3g} (bound "
+          f"{TRAIN_UPDATE_RTOL})")
+    del first, data, upd_card, upd_cpu
+
+    # the training run, counted
+    n_pred = -(-len(te["tp"]) // 64)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tparams, hist, (r2, rmse) = train_estimator(
+        e, tr, steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+        log_every=50, eval_data=te)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = Counter(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["lstm_scan"] == TRAIN_STEPS + n_pred,
+          f"lstm_scan once a step plus predict's {n_pred} "
+          f"({launches['lstm_scan']})")
+    check(ROUTES["lstm_scan"]["cluster"] == launches["lstm_scan"],
+          "the training scans take the cluster route")
+    check(sum(launches.values()) == launches["lstm_scan"],
+          f"training launches no other kernel ({dict(launches)})")
+    check(hist[-1][1] < hist[0][1],
+          f"the final loss below the first ({hist[0][1]} -> {hist[-1][1]})")
+    check(np.isfinite(r2) and np.isfinite(rmse), "Table II row C finite")
+    print(f"train_estimator: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} in "
+          f"{train_s:.2f} s (data to the card and {n_pred} predict batches "
+          f"included), loss {[(s, round(l, 2)) for s, l in hist]}; "
+          f"launches {dict(launches)}; peak {peak_gib:.2f} GiB")
+
+    # warm steps, synchronised and timed one by one
+    step_fn = make_indexed_step(e, opt)
+    data_dev = to_device(tr, BATCH_KEYS, dev)
+    ps, st = gparams, opt.init(gparams)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    draws = np.random.default_rng(SEED + 1)
+
+    def one_step():
+        nonlocal ps, st
+        i = torch.from_numpy(draws.integers(0, len(tr["tp"]), TRAIN_BATCH))
+        k = torch.rand((TRAIN_BATCH, e.hidden), generator=g, device=dev) \
+            < 1 - e.dropout
+        ps, st, _ = step_fn(ps, st, data_dev, i, k)
+
+    for _ in range(3):
+        one_step()
+    step_s = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_med = float(np.median(step_s))
+    step_dev_ms = busy = None
+    if "--profile" in argv:
+        step_dev_ms, busy = device_busy(one_step, 5, step_med)
+        print(f"profiled training steps: {step_dev_ms:.3f} device ms a "
+              f"step, {busy:.1%} of the median step")
+    print(f"training step: median {step_med * 1e3:.2f} ms of "
+          f"{TRAIN_TIMED_STEPS} ({min(step_s) * 1e3:.2f}-"
+          f"{max(step_s) * 1e3:.2f}), {1 / step_med:.1f} steps/s, "
+          f"{TRAIN_BATCH / step_med:.0f} samples/s")
+    del data_dev, ps, st
+
+    # Table II: ridge and the MLP on the 7- and 15-KPM summaries
+    t0 = time.perf_counter()
+    rows = {}
+    for fs in ("kpm7", "kpm15"):
+        xtr, xte = (summary_features(d["kpms"], fs) for d in (tr, te))
+        rows[f"ridge_{fs}"] = r2_rmse(
+            ridge_predict(ridge_fit(xtr, tr["tp"]), xte), te["tp"])
+        rows[f"mlp_{fs}"] = r2_rmse(mlp_fit_predict(xtr, tr["tp"], xte),
+                                    te["tp"])
+    rows["proposed_kpm_ts_plus_iq"] = (r2, rmse)
+    baselines_s = time.perf_counter() - t0
+    floor = constant_floor(tr["tp"], te["tp"])
+    for name, (a, b) in rows.items():
+        paper = TABLE2_PAPER["A" if "kpm7" in name else "B" if "kpm15" in name
+                             else "C"]
+        print(f"table2 {name:26s} R2 {a:8.4f} RMSE {b:7.3f} Mbps "
+              f"(paper {paper[0]:.4f} / {paper[1]:.2f})")
+    print(f"table2 constant floor RMSE {floor:.3f} Mbps; baselines "
+          f"{baselines_s:.2f} s")
+
+    # the recurrent estimator on the cells path's episode: trained with
+    # the plain recurrence (the reference cannot differentiate its ssd
+    # kernel), evaluated through the fused ssd kernel
+    feats = episode_features(cells_ep.kpms, cells_ep.alloc_ratio)
+    tp = np.asarray(cells_ep.tp_mbps, np.float32)
+    cut = SSM_TRAIN_UES
+    sdata = {"feats": feats[:cut], "tp": tp[:cut]}
+    sev = {"feats": feats[cut:], "tp": tp[cut:]}
+    c = SSMConfig()
+    ck = dataclasses.replace(c, use_kernel=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sparams, shist, _ = train_ssm(c, sdata, steps=SSM_STEPS, batch=SSM_BATCH,
+                                  seed=SEED, log_every=50)
+    torch.cuda.synchronize()
+    ssm_train_s = time.perf_counter() - t0
+    pred_k = ssm_predict(ck, sparams, sev)
+    ssm_launches = Counter(LAUNCHES)
+    pred_p = ssm_predict(c, sparams, sev)
+    n_spred = -(-len(sev["tp"]) // 64)
+    check(ssm_launches["ssd"] == n_spred and ROUTES["ssd"]["fused"] == n_spred
+          and sum(ssm_launches.values()) == n_spred,
+          f"the SSM runs ssd only in its kernel evaluation, {n_spred} fused "
+          f"launches ({dict(ssm_launches)})")
+    ssm_err = float(np.abs(pred_k - pred_p).max())
+    check(ssm_err <= 1e-4 * float(np.abs(pred_p).max()),
+          f"the SSM's fused-ssd predictions within 1e-4 of the plain "
+          f"recurrence's magnitude ({ssm_err:.3g})")
+    check(shist[-1][1] < shist[0][1], f"the SSM's loss falls ({shist})")
+    ssm_r2, ssm_rmse = r2_rmse(pred_k, sev["tp"])
+    persist = persistence_rmse(sev["tp"])
+    print(f"train_ssm: {SSM_STEPS} steps at batch {SSM_BATCH} on "
+          f"{cut} UEs x {feats.shape[1]} reports in {ssm_train_s:.2f} s, "
+          f"loss {[(s, round(l, 2)) for s, l in shist]}; eval on "
+          f"{len(sev['tp'])} UEs through the fused ssd ({n_spred} launches):"
+          f" R2 {ssm_r2:.4f} RMSE {ssm_rmse:.3f} Mbps (persistence "
+          f"{persist:.3f}), max |kernel - plain| {ssm_err:.3g}")
+    launches.update(ssm_launches)
+    return {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+            "train_s": train_s, "step_ms_median": step_med * 1e3,
+            "step_ms": [s * 1e3 for s in step_s],
+            "steps_per_s": 1 / step_med,
+            "samples_per_s": TRAIN_BATCH / step_med,
+            "step_device_ms": step_dev_ms, "step_device_busy": busy,
+            "peak_device_gib": peak_gib, "history": hist,
+            "table2": rows, "table2_constant_floor_rmse": floor,
+            "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_max": grad_rel,
+                            "grad_rel_max_tf32_backward": tf32_rel,
+                            "update_rel": upd_rel},
+            "ssm": {"train_s": ssm_train_s, "history": shist,
+                    "r2": ssm_r2, "rmse": ssm_rmse,
+                    "persistence_rmse": persist,
+                    "kernel_vs_plain_max_abs": ssm_err}}, launches, {
+        g: {k: v.cpu() for k, v in d.items()} for g, d in tparams.items()}
+
+
+def churn_sessions(sc, schedule, rng, n_sc: int, lean: bool):
+    """One episode row per scheduled session, scenarios cycling S0-S3,
+    traces as long as the longest dwell (``lean``: no KPMs or IQ, the
+    ground-truth pools' rows, as benchmarks/fleet.py's)."""
+    names = np.asarray(sc.SCENARIOS)[np.arange(schedule.n_sessions)
+                                     % len(sc.SCENARIOS)]
+    return sc.gen_episode_batch(names, schedule.max_dwell, rng, n_sc=n_sc,
+                                include_iq=not lean, include_kpms=not lean)
+
+
+def timed_pool(run, name: str, argv) -> tuple:
+    """One counted cold run of ``run`` and three warm ones: (result,
+    launches and routes of the cold run, cold s, warm s, and with
+    ``--profile`` the device ms and busy share of one more run, else
+    None)."""
+    from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = Counter(LAUNCHES)
+    routes = {k: dict(v) for k, v in ROUTES.items()}
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    busy = None
+    if "--profile" in argv:
+        busy = device_busy(run, 1, float(np.median(warm)))
+        print(f"profiled churn {name}: {busy[0]:.3f} device ms, "
+              f"{busy[1]:.1%} of the median warm run")
+    lc = res.lifecycle
+    print(f"churn {name}: {lc.capacity} slots, {lc.n_sessions} sessions "
+          f"({lc.n_admitted} admitted), {lc.ue_steps} UE-steps, occupancy "
+          f"{lc.occupancy.mean() / lc.capacity:.3f}, p99 admission "
+          f"{lc.p99_admit_latency():.1f} periods; cold {cold:.3f} s, warm "
+          f"{[round(w, 4) for w in warm]} s, "
+          f"{lc.ue_steps / float(np.median(warm)):.0f} UE-steps/s; launches "
+          f"{dict(launches)}")
+    return res, launches, routes, cold, warm, busy
+
+
+def pool_row(res, launches, cold, warm, busy) -> dict:
+    lc = res.lifecycle
+    return {"slots": lc.capacity, "sessions": lc.n_sessions,
+            "admitted": lc.n_admitted, "ue_steps": lc.ue_steps,
+            "occupancy": float(lc.occupancy.mean()) / lc.capacity,
+            "p99_admit_periods": lc.p99_admit_latency(), "cold_s": cold,
+            "warm_s": warm,
+            "ue_steps_per_s": lc.ue_steps / float(np.median(warm)),
+            "device_ms": busy and busy[0], "device_busy": busy and busy[1],
+            "launches": dict(launches)}
+
+
+def churn_path(dev, argv, prof, table, cfg, fixed, e,
+               params) -> tuple[dict, Counter]:
+    """Step 15: the slot-pool churn engine on the card. benchmarks/fleet.py's
+    churn cell at 4096 slots on ground truth, then with the pf scheduler
+    over 4 cells (segsum once a period), a smaller pool driven by the fp32
+    estimator at the paper's width with ``params`` (on the CPU: step 14's
+    trained weights; featurize, lstm_scan), and the
+    full-pool degenerate schedule against the batch engine; each pool
+    against the port on the CPU. Returns the ``e2e_churn`` numbers and the
+    kernels' launches."""
+    import dataclasses
+    from repro_torch.channel import scenarios as sc
+    from repro_torch.sim import SchedulerConfig, estimate_fleet, simulate_fleet
+
+    gparams = {g: {k: v.to(dev) for k, v in d.items()}
+               for g, d in params.items()}
+    launches = Counter()
+    out = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    ccfg = sc.ChurnConfig(arrival_rate=CHURN_FRAC * CHURN_SLOTS,
+                          mean_dwell=max(1.0, CHURN_OCCUPANCY / CHURN_FRAC),
+                          diurnal_amplitude=0.25, diurnal_period=CHURN_T)
+    schedule = sc.make_churn_schedule(ccfg, CHURN_T, rng)
+    sessions = churn_sessions(sc, schedule, rng, e.n_sc, lean=True)
+    cell = rng.integers(0, CHURN_CELLS, schedule.n_sessions)
+    print(f"churn setup: {schedule.n_sessions} sessions over {CHURN_T} "
+          f"periods (rate {ccfg.arrival_rate:.0f}, mean dwell "
+          f"{ccfg.mean_dwell:.2f}, max {schedule.max_dwell}, "
+          f"{schedule.max_admits} lanes): {time.perf_counter() - t0:.2f} s")
+    kw = dict(churn=schedule, capacity=CHURN_SLOTS, fixed_split=fixed)
+    kw_pf = dict(kw, sched=SchedulerConfig("pf", fused=True), cell_idx=cell,
+                 n_cells=CHURN_CELLS)
+    for name, k in (("ground_truth", kw), ("pf", kw_pf)):
+        res, n, routes, cold, warm, busy = timed_pool(
+            lambda: simulate_fleet(sessions, table, prof, cfg, **k), name,
+            argv)
+        launches.update(n)
+        cpu = simulate_fleet(sessions, table, prof, cfg, device="cpu", **k)
+        check(np.array_equal(res.active, cpu.active) and all(
+            np.array_equal(getattr(res.lifecycle, f),
+                           getattr(cpu.lifecycle, f))
+            for f in ("occupancy", "admitted", "departed", "admit_latency")),
+            f"churn {name}: occupancy and lifecycle equal to the CPU's")
+        served = res.active
+        same = float((res.splits == cpu.splits)[served].mean())
+        if name == "pf":
+            check(n["segsum"] == CHURN_T
+                  and routes["segsum"]["vec4"] == CHURN_T,
+                  f"the pf pool runs segsum once a period ({dict(n)})")
+            check(same >= CHURN_PF_SPLITS_EQUAL,
+                  f"pf pool splits equal to the CPU's on {same:.5f} of the "
+                  f"served cells")
+        else:
+            check(sum(n.values()) == 0, "the ground-truth pool launches "
+                  f"no kernel ({dict(n)})")
+            check(same == 1.0, "ground-truth pool splits equal the CPU's")
+        print(f"churn {name}: splits equal to the CPU's on {same:.6f} of "
+              f"{int(served.sum())} served slot-periods (first slots "
+              f"{res.splits[:2, :8].tolist()})")
+        out[name] = dict(pool_row(res, n, cold, warm, busy),
+                         splits_equal_cpu=same)
+
+    # the estimator-driven pool: fused featurize and lstm_scan at the
+    # paper's width over every session's trace
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    ecfg = sc.ChurnConfig(arrival_rate=CHURN_FRAC * CHURN_EST_SLOTS,
+                          mean_dwell=max(1.0, CHURN_OCCUPANCY / CHURN_FRAC),
+                          diurnal_amplitude=0.25, diurnal_period=CHURN_EST_T)
+    eschedule = sc.make_churn_schedule(ecfg, CHURN_EST_T, rng)
+    esessions = churn_sessions(sc, eschedule, rng, e.n_sc, lean=False)
+    print(f"churn estimator setup: {eschedule.n_sessions} sessions x "
+          f"{eschedule.max_dwell} periods at n_sc {e.n_sc} "
+          f"({esessions.iq.nbytes / 2**30:.2f} GiB of IQ): "
+          f"{time.perf_counter() - t0:.2f} s")
+    ekw = dict(churn=eschedule, capacity=CHURN_EST_SLOTS, fixed_split=fixed)
+    res, n, _, cold, warm, busy = timed_pool(
+        lambda: simulate_fleet(esessions, table, prof, cfg,
+                               estimator=(e, gparams), fused=True, **ekw),
+        "estimator", argv)
+    launches.update(n)
+    check(n["featurize"] > 0 and n["lstm_scan"] > 0
+          and n["featurize"] == n["lstm_scan"],
+          f"the estimator pool runs featurize and lstm_scan ({dict(n)})")
+    check(bool(np.isfinite(res.est_tp[res.active]).all()),
+          "estimator pool estimates finite")
+    # its estimates: the card's per-session estimates against the port on
+    # the CPU for the first sessions, and the pool on the CPU, fed the
+    # card's estimates as its sessions' traces, makes the same splits
+    est = estimate_fleet(esessions, (e, gparams), fused=True)
+    sub = sc.EpisodeBatch(**{f.name: getattr(esessions, f.name)[:CPU_UES]
+                             for f in dataclasses.fields(esessions)})
+    est_cpu = estimate_fleet(sub, (e, params), fused=True, device="cpu")
+    est_diff = float(np.abs(est_cpu - est[:CPU_UES]).max())
+    check(np.allclose(est[:CPU_UES], est_cpu, rtol=1e-4, atol=1e-3),
+          f"pool estimates card vs CPU ({est_diff:.3g})")
+    fed = dataclasses.replace(esessions, tp_mbps=est, iq=None, kpms=None)
+    cpu = simulate_fleet(fed, table, prof, cfg, device="cpu", **ekw)
+    check(np.array_equal(res.splits, cpu.splits)
+          and np.array_equal(res.active, cpu.active),
+          "estimator pool splits equal the CPU pool's on the card's "
+          "estimates")
+    print(f"churn estimator: estimates of sessions 0-{CPU_UES - 1} card vs "
+          f"CPU max {est_diff:.3g} Mbps; splits equal to the CPU pool's on "
+          "the card's estimates")
+    out["estimator"] = dict(pool_row(res, n, cold, warm, busy),
+                            est_vs_cpu_max_abs=est_diff)
+
+    # the degenerate schedule: everyone at t = 0 for the whole horizon
+    rng = np.random.default_rng(5)
+    n_ue = FULL_POOL_N
+    ep = sc.gen_episode_batch(
+        np.asarray(sc.SCENARIOS)[np.arange(n_ue) % 4], FULL_POOL_T, rng,
+        n_sc=e.n_sc, include_iq=False)
+    full = sc.ChurnSchedule(
+        arrival_t=np.zeros(n_ue, np.int32),
+        dwell=np.full(n_ue, FULL_POOL_T, np.int32),
+        ready_end=np.full(FULL_POOL_T, n_ue, np.int32), horizon=FULL_POOL_T,
+        max_admits=n_ue)
+    base = simulate_fleet(ep, table, prof, cfg, fixed_split=fixed)
+    pool = simulate_fleet(ep, table, prof, cfg, fixed_split=fixed,
+                          churn=full, capacity=n_ue)
+    mrel = max(float(np.abs(getattr(base, f) - getattr(pool, f)).max()
+                     / max(np.abs(getattr(base, f)).max(), 1e-30))
+               for f in ("true_tp", "est_tp", "delay_s", "privacy",
+                         "energy_j"))
+    check(np.array_equal(base.splits, pool.splits) and pool.active.all(),
+          "the full pool's splits bit-equal to the batch engine's")
+    check(mrel <= 1e-6, f"the full pool's metrics within 1e-6 of the batch "
+          f"engine's ({mrel:.3g})")
+    print(f"churn full pool: {n_ue} sessions x {FULL_POOL_T} periods, splits "
+          f"bit-equal to the batch engine, metrics max rel {mrel:.3g}")
+    out["full_pool"] = {"sessions": n_ue, "periods": FULL_POOL_T,
+                        "splits_equal": True, "metrics_max_rel": mrel}
+    return out, launches
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3106,9 +3659,6 @@ def main(argv: list[str]) -> int:
     # spread over the table's 1-130 Mbps range
     e = EstimatorConfig()
     t0 = time.perf_counter()
-    names = np.asarray(sc.SCENARIOS)[np.arange(N_UES) % len(sc.SCENARIOS)]
-    ep = sc.gen_episode_batch(names, T_PERIODS, np.random.default_rng(SEED),
-                              n_sc=e.n_sc)
     prof = vgg_split_profile(FULL)
     table = pso_vectorized(prof, UE_VM_2CORE, EDGE_A40X2,
                            Weights(1.0, 0.15, 0.1),
@@ -3117,6 +3667,19 @@ def main(argv: list[str]) -> int:
     fixed = table.query(float(max_throughput_mbps(np.array(-60.0))))
     cfg = ControllerConfig(ewma_alpha=0.6, hysteresis_steps=2,
                            fallback_split=fixed)
+    if "--train" in argv:  # steps 14-15 alone (no ok line)
+        train, train_launches, trained = train_path(dev, argv,
+                                                    cells_episode()[0])
+        print(json.dumps({"e2e_train": dict(train, card=smi)}))
+        churn, churn_launches = churn_path(dev, argv, prof, table, cfg,
+                                           fixed, e, trained)
+        print(json.dumps({"e2e_churn": dict(churn, card=smi)}))
+        print(json.dumps({"launches_train": train_launches,
+                          "launches_churn": churn_launches}))
+        return 0
+    names = np.asarray(sc.SCENARIOS)[np.arange(N_UES) % len(sc.SCENARIOS)]
+    ep = sc.gen_episode_batch(names, T_PERIODS, np.random.default_rng(SEED),
+                              n_sc=e.n_sc)
     params = init_estimator(e, torch.Generator().manual_seed(SEED),
                             device="cpu")
     params["head"]["w2"] *= 40.0
@@ -3429,8 +3992,8 @@ def main(argv: list[str]) -> int:
         "peak_device_gib": peak8_gib, "rmse_vs_fp32_mbps": rmse8}}))
 
     # 6. the multi-cell scheduled fleet on the recurrent SSM estimator
-    seg_row, ssd_fused = cells_path(dev, prof, table, cfg, fixed, argv,
-                                    floor)
+    seg_row, ssd_fused, cells_ep = cells_path(dev, prof, table, cfg, fixed,
+                                              argv, floor)
     check(ssd_fused["route"] == "fused", "the cells path's ssd call takes "
           f"the fused route ({ssd_fused['route']})")
     kernels.append(seg_row)
@@ -3521,6 +4084,21 @@ def main(argv: list[str]) -> int:
         DECODE_LAUNCHES[k] for k in ("flash_attention", "ssd")),
         f"decode launched quantize (the int8 KV cache) and no attention or "
         f"ssd kernel ({dict(DECODE_LAUNCHES)})")
+
+    # 14. offline training: the windowed estimator at the paper's width
+    # (Table II), the recurrent one on the cells path's episode
+    torch.cuda.empty_cache()
+    train, train_launches, trained = train_path(dev, argv, cells_ep)
+    print(json.dumps({"e2e_train": dict(train, card=smi)}))
+    # 15. the slot pool under churn, the trained estimator driving one pool
+    churn, churn_launches = churn_path(dev, argv, prof, table, cfg, fixed, e,
+                                       trained)
+    print(json.dumps({"e2e_churn": dict(churn, card=smi)}))
+
+    # 16. the kernels line, each row with its training and churn launches
+    for k in kernels:
+        k["launches_train"] = train_launches[k["name"]]
+        k["launches_churn"] = churn_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

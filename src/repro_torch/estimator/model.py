@@ -1,17 +1,22 @@
-"""AI-based throughput estimator (paper Fig. 3 + Table I), inference.
+"""AI-based throughput estimator (paper Fig. 3 + Table I).
 
 Branch 1: LSTM (hidden 124, window 30) over the 15 numerical KPMs, run by
-the ``lstm_scan`` kernel (``lstm_branch``).
+the ``lstm_scan`` kernel (``lstm_branch``; in training through its
+autograd Function ``LstmScan``).
 Branch 2: CNN over the (2, 273*12, 14) IQ spectrogram:
     conv3x3(16) - relu - maxpool2 - conv3x3(32) - relu - maxpool2 -
-    flatten - linear(hidden) - relu
+    flatten - linear(hidden) - relu - dropout (training only)
 Fusion: weighted sum with w = allocated-PRB ratio, then an FC head.
+
+``forward_core`` is the differentiable forward. ``estimator_forward``
+runs it for inference (``torch.inference_mode``, full f32 on the card);
+``estimator_forward_train`` runs it with autograd on, the LSTM branch
+through ``LstmScan`` and dropout from an explicit keep mask.
 
 Parameters are a nested dict of tensors with the reference's names,
 shapes and layouts (``estimator_template``): conv weights HWIO, and the
 rows of ``cnn.fc`` in the (h, w, c) order of an NHWC flatten, so a
 reference parameter tree carries over as it is (``repro_torch.weights``).
-Dropout is a training-time op and waits for the training slice.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.lstm import lstm_hidden
+from repro_torch.kernels.lstm import lstm_hidden, lstm_hidden_train
 
 F32 = torch.float32
 
@@ -100,9 +105,12 @@ def init_estimator(e: EstimatorConfig, generator: torch.Generator, *,
     return params
 
 
-def lstm_branch(p: dict, kpms: torch.Tensor) -> torch.Tensor:
-    """kpms: (B, T, K) -> (B, hidden), through the ``lstm_scan`` kernel."""
-    return lstm_hidden(kpms, p["wx"], p["wh"], p["b"]) @ p["proj"]
+def lstm_branch(p: dict, kpms: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+    """kpms: (B, T, K) -> (B, hidden), through the ``lstm_scan`` kernel
+    (``train``: through ``LstmScan``, which has a gradient)."""
+    scan = lstm_hidden_train if train else lstm_hidden
+    return scan(kpms, p["wx"], p["wh"], p["b"]) @ p["proj"]
 
 
 def conv_trunk(p: dict, iq: torch.Tensor):
@@ -132,10 +140,15 @@ def cat_rows(outs: list) -> torch.Tensor:
     return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
-def cnn_branch(p: dict, iq: torch.Tensor) -> torch.Tensor:
-    """iq: (B, 2, S, 14) -> (B, hidden), inference (no dropout)."""
-    return cat_rows([F.relu(x @ p["fc"] + p["fcb"])
-                     for x in conv_trunk(p, iq)])
+def cnn_branch(p: dict, iq: torch.Tensor, keep=None,
+               rate: float = 0.0) -> torch.Tensor:
+    """iq: (B, 2, S, 14) -> (B, hidden). With a (B, hidden) bool ``keep``
+    mask and ``rate`` > 0, dropout after the fc's relu as the
+    reference's: ``x * keep / (1 - rate)``."""
+    x = cat_rows([F.relu(x @ p["fc"] + p["fcb"]) for x in conv_trunk(p, iq)])
+    if keep is not None and rate:
+        x = x * keep / (1 - rate)
+    return x
 
 
 @contextlib.contextmanager
@@ -174,6 +187,20 @@ def as_f32(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=dev, dtype=F32)
 
 
+def forward_core(params: dict, kpms, iq, alloc, *, train: bool = False,
+                 keep=None, rate: float = 0.0) -> torch.Tensor:
+    """The forward on f32 tensors of one device: (B,) Mbps. ``train``
+    runs the LSTM branch through ``LstmScan``; ``keep``/``rate`` are the
+    CNN branch's dropout."""
+    v_t = lstm_branch(params["lstm"], kpms, train)
+    v_s = cnn_branch(params["cnn"], iq, keep, rate)
+    w = alloc.clamp(0.0, 1.0)[:, None]
+    fused = w * v_t + (1.0 - w) * v_s
+    h = F.relu(fused @ params["head"]["w1"] + params["head"]["b1"])
+    out = h @ params["head"]["w2"] + params["head"]["b2"]
+    return out[:, 0]
+
+
 def estimator_forward(e: EstimatorConfig, params: dict, kpms, iq, alloc, *,
                       device="cuda") -> torch.Tensor:
     """Predicted max throughput in Mbps, shape (B,), on ``device``.
@@ -185,10 +212,23 @@ def estimator_forward(e: EstimatorConfig, params: dict, kpms, iq, alloc, *,
     check_params_device(params, dev)
     kpms, iq, alloc = (as_f32(a, dev) for a in (kpms, iq, alloc))
     with torch.inference_mode(), full_f32(dev):
-        v_t = lstm_branch(params["lstm"], kpms)
-        v_s = cnn_branch(params["cnn"], iq)
-        w = alloc.clamp(0.0, 1.0)[:, None]
-        fused = w * v_t + (1.0 - w) * v_s
-        h = F.relu(fused @ params["head"]["w1"] + params["head"]["b1"])
-        out = h @ params["head"]["w2"] + params["head"]["b2"]
-    return out[:, 0]
+        return forward_core(params, kpms, iq, alloc)
+
+
+def estimator_forward_train(e: EstimatorConfig, params: dict, kpms, iq,
+                            alloc, keep=None) -> torch.Tensor:
+    """The training-mode forward, with autograd on: (B,) Mbps on the
+    device of ``kpms``, which ``iq``, ``alloc``, ``params`` and ``keep``
+    share.
+
+    ``keep``: the (B, hidden) bool dropout mask of the CNN branch, or
+    None for none; the trainers draw it as ``rand < 1 - e.dropout``, the
+    way ``jax.random.bernoulli`` decides. Run the forward and its
+    backward inside ``full_f32`` (``estimator.train.loss_and_grads``
+    does), or the card's convolutions and products may take TF32."""
+    dev = torch.as_tensor(kpms).device
+    check_params_device(params, dev)
+    kpms, iq, alloc = (as_f32(a, dev) for a in (kpms, iq, alloc))
+    return forward_core(params, kpms, iq, alloc, train=True,
+                        keep=None if keep is None else keep.to(dev),
+                        rate=e.dropout)

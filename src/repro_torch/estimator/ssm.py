@@ -1,4 +1,4 @@
-"""Recurrent SSM throughput estimator with K-period forecasts, inference.
+"""Recurrent SSM throughput estimator with K-period forecasts.
 
 The O(1)-per-report alternative to the windowed estimator: each UE
 carries a constant-size SSD recurrent state (the Mamba-2 recurrence of
@@ -25,7 +25,11 @@ Forecast rollout, in closed form: holding the last input u, per head
 ``d = exp(dt*A)``. ``forecast_policy`` collapses the (K+1) forecasts to
 the one throughput the controller consumes (``reduce_forecasts``, host
 numpy); ``forecast_horizon=0`` gives the plain current estimate.
-Training waits for the training slice (ROADMAP.md module queue item 5).
+
+``seq_core`` and ``step_core`` are the differentiable passes on tensors
+of one device; ``ssm_forward_seq`` and ``ssm_step`` run them for
+inference (``torch.inference_mode``, full f32 on the card), the trainers
+of ``estimator.train`` with autograd on.
 """
 from __future__ import annotations
 
@@ -251,6 +255,37 @@ def _inputs(params, x, device):
     return as_f32(x, dev), dev
 
 
+def seq_core(c: SSMConfig, params: dict, feats: torch.Tensor):
+    """The sequence pass on an f32 (B, S, F) tensor of the parameters'
+    device: ((B, S, K+1) forecasts, final state)."""
+    u, dt, bm, cm, A = _project(c, params, feats)
+    s = feats.shape[1]
+    chunk = min(c.chunk, s)
+    pad = -s % chunk
+    if pad:
+        def pz(a):  # zero rows after the trace, on axis 1
+            return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        y, state = ssd_mixer(pz(u), pz(dt), A, pz(bm), pz(cm),
+                             chunk=chunk, use_kernel=c.use_kernel)
+        y = y[:, :s]
+    else:
+        y, state = ssd_mixer(u.contiguous(), dt.contiguous(), A,
+                             bm.contiguous(), cm.contiguous(),
+                             chunk=chunk, use_kernel=c.use_kernel)
+    fc = _forecast_readout(c, params, y, u, dt, bm, cm, feats, A)
+    return fc, state
+
+
+def step_core(c: SSMConfig, params: dict, state: torch.Tensor,
+              feats: torch.Tensor):
+    """One report on f32 tensors of the parameters' device: (new state,
+    (B, K+1) forecasts)."""
+    u, dt, bm, cm, A = _project(c, params, feats)
+    y, state = ssd_step(u, dt, A, bm, cm, state)
+    fc = _forecast_readout(c, params, y, u, dt, bm, cm, feats, A)
+    return state, fc
+
+
 def ssm_forward_seq(c: SSMConfig, params: dict, feats, *, device="cuda"):
     """Sequence mode: feats (B, S, F) -> ((B, S, K+1) forecasts, final
     state (B,) + ``c.state_shape()``), on ``device``.
@@ -262,22 +297,7 @@ def ssm_forward_seq(c: SSMConfig, params: dict, feats, *, device="cuda"):
     of an episode trace reads index ``WINDOW + t - 1``."""
     feats, dev = _inputs(params, feats, device)
     with torch.inference_mode(), full_f32(dev):
-        u, dt, bm, cm, A = _project(c, params, feats)
-        s = feats.shape[1]
-        chunk = min(c.chunk, s)
-        pad = -s % chunk
-        if pad:
-            def pz(a):  # zero rows after the trace, on axis 1
-                return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
-            y, state = ssd_mixer(pz(u), pz(dt), A, pz(bm), pz(cm),
-                                 chunk=chunk, use_kernel=c.use_kernel)
-            y = y[:, :s]
-        else:
-            y, state = ssd_mixer(u.contiguous(), dt.contiguous(), A,
-                                 bm.contiguous(), cm.contiguous(),
-                                 chunk=chunk, use_kernel=c.use_kernel)
-        fc = _forecast_readout(c, params, y, u, dt, bm, cm, feats, A)
-    return fc, state
+        return seq_core(c, params, feats)
 
 
 def ssm_step(c: SSMConfig, params: dict, state, feats, *, device="cuda"):
@@ -288,10 +308,7 @@ def ssm_step(c: SSMConfig, params: dict, state, feats, *, device="cuda"):
     feats, dev = _inputs(params, feats, device)
     state = as_f32(state, dev)
     with torch.inference_mode(), full_f32(dev):
-        u, dt, bm, cm, A = _project(c, params, feats)
-        y, state = ssd_step(u, dt, A, bm, cm, state)
-        fc = _forecast_readout(c, params, y, u, dt, bm, cm, feats, A)
-    return state, fc
+        return step_core(c, params, state, feats)
 
 
 def reduce_forecasts(c: SSMConfig, fc: np.ndarray) -> np.ndarray:

@@ -9,7 +9,11 @@ tensors on the CPU and the tests hold the kernel to. On a card
 to ``CLUSTER_MAX_HIDDEN``: the estimator's) or ``"block"`` (the first
 version, wh read through the L2, up to 1024); both give the same bits.
 ``lstm_hidden`` is the dispatch the estimator calls: ``lstm_hidden(...) @
-proj`` is ``estimator.model.lstm_branch``.
+proj`` is ``estimator.model.lstm_branch``. Training goes through
+``LstmScan``, an autograd Function whose forward is ``lstm_scan`` (the
+kernel on a card) and whose backward differentiates ``lstm_scan_ref`` at
+the saved inputs (no backward kernel: the reference has none), through
+the dispatch ``lstm_hidden_train``.
 
 The int8 serving scan is ``lstm_scan_q`` (kernel ``csrc/lstm_scan_q.cu``),
 ``lstm_scan_q_ref`` and the dispatch ``lstm_hidden_q``: the weights come
@@ -159,6 +163,36 @@ def lstm_hidden(kpms, wx, wh, b) -> torch.Tensor:
     windows' device."""
     return lstm_scan(kpms.to(F32).contiguous(), wx.contiguous(),
                      wh.contiguous(), b.contiguous())
+
+
+class LstmScan(torch.autograd.Function):
+    """``lstm_scan`` forward; the backward recomputes ``lstm_scan_ref``
+    (the same function) at the saved inputs under autograd and
+    differentiates it. Only the forward launches the kernel, so only it
+    counts in ``LAUNCHES``."""
+
+    @staticmethod
+    def forward(ctx, kpms, wx, wh, b):
+        ctx.save_for_backward(kpms, wx, wh, b)
+        return lstm_scan(kpms, wx, wh, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        want = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w)
+                   for t, w in zip(ctx.saved_tensors, want)]
+            out = lstm_scan_ref(*ins)
+            wrt = [t for t, w in zip(ins, want) if w]
+            grads = iter(torch.autograd.grad(out, wrt, grad))
+        return tuple(next(grads) if w else None for w in want)
+
+
+def lstm_hidden_train(kpms, wx, wh, b) -> torch.Tensor:
+    """``lstm_hidden`` with a gradient: (B, T, K) windows -> (B, H) final
+    hidden state through ``LstmScan``."""
+    return LstmScan.apply(kpms.to(F32).contiguous(), wx.contiguous(),
+                          wh.contiguous(), b.contiguous())
 
 
 def _check_q(kpms, wxq, wxs, whq, whs, b):

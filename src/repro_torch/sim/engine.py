@@ -21,9 +21,11 @@ share ``controller_step``) and identical metrics.
 (``estimator.serve``). An ``(SSMConfig, params)`` estimator runs the
 recurrent arm (one ``ssd`` sequence pass per chunk of UEs). ``sched``
 puts the gNB PRB scheduler (``sim.sched``, the ``segsum`` kernel with
-``fused=True``) into the per-period loop (``run_scheduled``). The
-arguments of later slices (``serving``, ``online``, ``churn``/
-``capacity``, ``telemetry``) raise ``NotImplementedError`` naming their
+``fused=True``) into the per-period loop (``run_scheduled``). ``churn``
+(with an explicit ``capacity``) hands the run to the slot pool
+(``sim.pool``): the episode's rows become sessions that arrive, stay for
+their dwell and leave. The arguments of later slices (``serving``,
+``online``, ``telemetry``) raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` queue item; none is ignored.
 """
 from __future__ import annotations
@@ -51,16 +53,10 @@ from repro_torch.estimator.serve import (check_quant, fwd_int8,
                                          quantize_estimator)
 from repro_torch.estimator.ssm import (SSMConfig, episode_features,
                                        reduce_forecasts, ssm_forward_seq)
-from repro_torch.estimator.train import fwd
+from repro_torch.estimator.train import _not_ported, fwd
 from repro_torch.kernels.featurize import kpm_feature_windows
 from repro_torch.sim.sched import (SchedulerConfig, scheduler_init,
                                    scheduler_step)
-
-
-def _not_ported(arg: str, item: str):
-    return NotImplementedError(
-        f"{arg} is not ported to repro_torch yet: ROADMAP.md module queue "
-        f"item {item}")
 
 
 @dataclasses.dataclass
@@ -76,6 +72,10 @@ class FleetResult:
     fixed: Optional["FleetResult"] = None  # fixed-split baseline, same shapes
     prb_share: Optional[np.ndarray] = None  # (N, T) gNB PRB grant, if
     # a scheduler ran; None on the default (uncontended) path
+    active: Optional[np.ndarray] = None  # (S, T) bool slot occupancy of a
+    # churned run (rows are pool slots); None on the batch path
+    lifecycle: Optional["LifecycleStats"] = None  # the pool's admission /
+    # departure accounting (``sim.pool.LifecycleStats``), churn only
 
     @property
     def n_ues(self) -> int:
@@ -367,15 +367,32 @@ def simulate_fleet(episode: EpisodeBatch, table, profile: SplitProfile,
     are gathered at the PRB-scaled ground truth. Without ``sched``,
     ``cell_idx`` and ``n_cells`` are ignored, as the reference ignores
     them.
+
+    ``churn``: a ``ChurnSchedule`` (``channel.scenarios.
+    make_churn_schedule``) switches to the slot pool (``sim.pool.
+    simulate_pool``) of ``capacity`` slots, which it needs: the episode's
+    N rows become sessions, the result's rows pool slots over time, with
+    ``result.active`` marking occupancy and ``result.lifecycle`` the
+    admission and departure accounting; ``cell_idx`` is then an (N,)
+    per-session cell. ``capacity`` without ``churn`` is ignored, as the
+    reference ignores it.
     """
     for arg, value, item in (("serving", serving, "12"),
                              ("online", online, "10"),
-                             ("churn", churn, "8"),
-                             ("capacity", capacity, "8"),
                              ("telemetry", telemetry, "11")):
         if value is not None:
             raise _not_ported(arg, item)
     check_quant(quant)
+    if churn is not None:
+        from repro_torch.sim.pool import simulate_pool
+        if capacity is None:
+            raise TypeError("churn=... needs an explicit capacity=N_slots")
+        return simulate_pool(episode, churn, table, profile, cfg,
+                             capacity=capacity, warm_split=warm_split,
+                             estimator=estimator, fixed_split=fixed_split,
+                             ue=ue, server=server, sched=sched,
+                             cell=cell_idx, n_cells=n_cells, quant=quant,
+                             fused=fused, device=device)
     if sched is not None and cell_idx is None:
         raise ValueError("a scheduler needs a (N, T) cell_idx")
     dev = resolve_device(device)

@@ -16,8 +16,10 @@ import torch
 from repro_torch.channel import scenarios as sc
 from repro_torch.core.controller import ControllerConfig, controller_init
 from repro_torch.core.pso import LookupTable
+from repro_torch.estimator.baselines import mlp_fit_predict
 from repro_torch.estimator.model import (EstimatorConfig, estimator_forward,
                                          init_estimator)
+from repro_torch.estimator.train import train_estimator, train_ssm
 from repro_torch.estimator.ssm import (SSMConfig, init_ssm, ssm_forward_seq,
                                        ssm_state_init, ssm_step,
                                        ssm_warm_state)
@@ -26,8 +28,9 @@ from repro_torch.models.vgg import (FULL, REDUCED, forward, init_vgg,
                                     vgg_split_profile)
 from repro_torch.sim import (SchedulerConfig, cell_load,
                              coupled_interference_mw, estimate_fleet,
-                             ring_coupling, run_controllers, run_scheduled,
-                             scheduler_init, simulate_cells, simulate_fleet)
+                             pool_init, ring_coupling, run_controllers,
+                             run_scheduled, scheduler_init, simulate_cells,
+                             simulate_fleet, simulate_pool)
 from repro_torch.weights import (lm_cache_from_reference,
                                  lm_params_from_reference,
                                  params_from_reference,
@@ -55,8 +58,10 @@ MODULES = [
     "repro_torch.kernels.segsum", "repro_torch.kernels.ssd",
     "repro_torch.estimator", "repro_torch.estimator.model",
     "repro_torch.estimator.serve", "repro_torch.estimator.ssm",
-    "repro_torch.estimator.train", "repro_torch.weights",
+    "repro_torch.estimator.train", "repro_torch.estimator.baselines",
+    "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.weights",
     "repro_torch.sim", "repro_torch.sim.engine", "repro_torch.sim.sched",
+    "repro_torch.sim.pool",
     "repro_torch.sim.cells", "repro_torch.configs",
     "repro_torch.configs.base", "repro_torch.kernels.flash_attention",
     "repro_torch.models.blocks", "repro_torch.models.lm",
@@ -106,6 +111,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     lp = init_params(lcfg, torch.Generator().manual_seed(0), device="cpu")
     tok = {"tokens": np.zeros((1, 16), np.int32)}
     lcache = init_cache(lcfg, 1, 20, device="cpu")
+    data = {"kpms": np.zeros((4, 30, 15), np.float32),
+            "iq": np.zeros((4, 2, 16, 14), np.float32),
+            "alloc": np.ones(4, np.float32), "tp": np.ones(4, np.float32)}
+    sdata = {"feats": feats, "tp": np.ones((2, 2), np.float32)}
+    churn = sc.make_churn_schedule(sc.ChurnConfig(arrival_rate=2.0,
+                                                  max_dwell=3), 3,
+                                   np.random.default_rng(0))
+    sess = sc.gen_episode_batch(["cci"] * churn.n_sessions, 3,
+                                np.random.default_rng(0), n_sc=16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: simulate_fleet(ep, table, prof, cfg),
@@ -155,36 +169,64 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: lm.decode_step(lcfg, lp, lcache, tok["tokens"][:, :1], 16),
         lambda: make_decode_step(lcfg)(lp, lcache, tok["tokens"][:, :1], 16),
         lambda: lm_cache_from_reference({"pos": np.zeros(2, np.int32)}),
+        lambda: train_estimator(e, data, steps=1, batch=2),
+        lambda: train_ssm(c, sdata, steps=1, batch=2),
+        lambda: mlp_fit_predict(np.zeros((4, 3), np.float32), np.zeros(4),
+                                np.zeros((2, 3), np.float32), steps=1),
+        lambda: simulate_fleet(sess, table, prof, cfg, churn=churn,
+                               capacity=4),
+        lambda: simulate_pool(sess, churn, table, prof, cfg, capacity=4),
+        lambda: pool_init(4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
 
 
-# The three cases that once asserted NotImplementedError for the
-# multi-cell arguments keep their ids: the scheduler is ported, so a
-# scheduler without cells raises the reference's ValueError, and the
-# cell arguments with churn raise for the slot pool (item 8).
+# The cases kw3-6 to kw6-8 once asserted NotImplementedError for churn
+# and capacity; the slot pool is ported, so they assert what the reference
+# does: churn without capacity raises its TypeError (before any scheduler
+# check), capacity without churn is ignored (``error=None``: the run equals
+# the plain run). churn with online or telemetry raises for those items.
 @pytest.mark.parametrize("kw,error,match", [
     ({"serving": object()}, NotImplementedError, "queue item 12"),
     ({"online": object()}, NotImplementedError, "queue item 10"),
     ({"sched": SchedulerConfig("pf")}, ValueError,
      r"a scheduler needs a \(N, T\) cell_idx"),
-    ({"cell_idx": np.zeros((4, 3)), "churn": object()}, NotImplementedError,
-     "queue item 8"),
+    ({"cell_idx": np.zeros((4, 3)), "churn": object()}, TypeError,
+     "churn=... needs an explicit capacity"),
     ({"n_cells": 2, "sched": SchedulerConfig("pf"), "churn": object()},
-     NotImplementedError, "queue item 8"),
-    ({"churn": object()}, NotImplementedError, "queue item 8"),
-    ({"capacity": 4}, NotImplementedError, "queue item 8"),
+     TypeError, "churn=... needs an explicit capacity"),
+    ({"churn": object()}, TypeError, "churn=... needs an explicit capacity"),
+    ({"capacity": 4}, None, None),
     ({"serving": object(), "quant": "int8"}, NotImplementedError,
      "queue item 12"),
     ({"telemetry": object()}, NotImplementedError, "queue item 11"),
     ({"online": object(), "quant": "int8"}, NotImplementedError,
-     "queue item 10")],
+     "queue item 10"),
+    ({"churn": "schedule", "capacity": 4, "online": object()},
+     NotImplementedError, "queue item 10"),
+    ({"churn": "schedule", "capacity": 4, "telemetry": object()},
+     NotImplementedError, "queue item 11")],
     ids=["kw0-12", "kw1-10", "kw2-6", "kw3-6", "kw4-6", "kw5-8", "kw6-8",
-         "kw7-12", "kw8-11", "kw9-10"])
+         "kw7-12", "kw8-11", "kw9-10", "churn-online-10",
+         "churn-telemetry-11"])
 def test_later_slices_raise(kw, error, match):
     e, params, ep, prof, table, cfg = _small()
+    if kw.get("churn") == "schedule":
+        kw["churn"] = sc.ChurnSchedule(
+            arrival_t=np.zeros(4, np.int32), dwell=np.full(4, 3, np.int32),
+            ready_end=np.full(3, 4, np.int32), horizon=3, max_admits=4)
+    if error is None:
+        got = simulate_fleet(ep, table, prof, cfg, estimator=(e, params),
+                             device="cpu", **kw)
+        plain = simulate_fleet(ep, table, prof, cfg, estimator=(e, params),
+                               device="cpu")
+        assert got.active is None and got.lifecycle is None
+        np.testing.assert_array_equal(got.splits, plain.splits)
+        np.testing.assert_array_equal(got.est_tp, plain.est_tp)
+        np.testing.assert_array_equal(got.delay_s, plain.delay_s)
+        return
     with pytest.raises(error, match=match):
         simulate_fleet(ep, table, prof, cfg, estimator=(e, params),
                        device="cpu", **kw)

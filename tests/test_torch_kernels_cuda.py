@@ -1048,3 +1048,89 @@ def test_ssd_lm_slice_on_card_matches_cpu(card):
     off = lm.forward(cfg, gpu, batch, logits_mode="last", use_kernel=False)
     assert ((off.float() - full.float()).abs().max()
             <= 0.05 * full.float().abs().max())
+
+
+@pytest.mark.parametrize("b,h", [(24, 124), (7, 8)])
+def test_lstm_scan_function_gradient_on_card(card, b, h):
+    """``LstmScan`` on the card: the kernel forward (one launch, counted)
+    and the backward through the plain version, against the plain
+    version's own autograd on the same inputs."""
+    from repro_torch.kernels.lstm import lstm_hidden_train
+    rng = np.random.default_rng(b + h)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+            np.float32)).to(card).requires_grad_()
+
+    x, wx, wh = t(b, 30, 15), t(15, 4 * h, scale=0.3), t(h, 4 * h, scale=0.3)
+    bias = t(4 * h, scale=0.1)
+    cot = torch.randn((b, h), device=card)
+    reset_launches()
+    out = lstm_hidden_train(x, wx, wh, bias)
+    grads = torch.autograd.grad((out * cot).sum(), (x, wx, wh, bias))
+    assert LAUNCHES["lstm_scan"] == 1
+    want = torch.autograd.grad((lstm_scan_ref(x, wx, wh, bias) * cot).sum(),
+                               (x, wx, wh, bias))
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One estimator training step at a small width from one init and one
+    injected mask: loss, gradients and the updated parameters on the card
+    against the port on the CPU."""
+    from repro_torch.estimator.train import (BATCH_KEYS, estimator_loss,
+                                             loss_and_grads, to_device)
+    from repro_torch.optim import AdamW, tree_leaves
+    e = EstimatorConfig(n_sc=64, lstm_hidden=16, hidden=16)
+    cpu_p = init_estimator(e, torch.Generator().manual_seed(0), device="cpu")
+    gpu_p = tree_map(lambda v: v.to(card), cpu_p)
+    data = sc.gen_dataset(4, np.random.default_rng(0), episode_len=4,
+                          n_sc=64)
+    keep = torch.rand((8, e.hidden), generator=torch.Generator()
+                      .manual_seed(1)) < 1 - e.dropout
+    out = {}
+    for dev, p in (("cpu", cpu_p), ("cuda", gpu_p)):
+        batch = {k: v[:8] for k, v in to_device(data, BATCH_KEYS,
+                                                torch.device(dev)).items()}
+        out[dev] = loss_and_grads(
+            lambda q: estimator_loss(e, q, batch, keep.to(dev)), p)
+    assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= 1e-5 * float(
+        out["cpu"][0])
+    # of each leaf's largest magnitude (a conv weight's gradient measured
+    # 1.6e-5 on an H100, its f32 sums in another order than the CPU's)
+    for g, w in zip(tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+    opt = AdamW(lr=1e-3)
+    new_gpu, _, _ = opt.update(out["cuda"][1], opt.init(gpu_p), gpu_p)
+    new_cpu, _, _ = opt.update(tree_map(lambda v: v.cpu(), out["cuda"][1]),
+                               opt.init(cpu_p), cpu_p)
+    for a, b in zip(tree_leaves(new_gpu), tree_leaves(new_cpu)):
+        assert (a.cpu() - b).abs().max() <= 1e-6 * max(b.abs().max(), 1e-3)
+
+
+def test_pool_on_card_matches_cpu(card):
+    """A churned pool with the pf scheduler on the segsum kernel, one
+    launch a period: splits and lifecycle equal to the CPU's."""
+    schedule = sc.make_churn_schedule(
+        sc.ChurnConfig(arrival_rate=16.0, mean_dwell=3.0,
+                       diurnal_amplitude=0.25), 20, np.random.default_rng(0))
+    sessions = sc.gen_episode_batch(
+        np.asarray(sc.SCENARIOS)[np.arange(schedule.n_sessions) % 4],
+        schedule.max_dwell, np.random.default_rng(1), include_iq=False,
+        include_kpms=False)
+    prof = vgg_split_profile(FULL)
+    table = LookupTable("t", np.where(np.arange(131) > 20, 3, 10).astype(
+        np.int32), np.zeros(43), np.ones(43, bool))
+    cfg = ControllerConfig(0.5, 2, 3)
+    cell = np.arange(schedule.n_sessions) % 4
+    kw = dict(churn=schedule, capacity=48, cell_idx=cell, n_cells=4,
+              sched=SchedulerConfig("pf", fused=True))
+    reset_launches()
+    got = simulate_fleet(sessions, table, prof, cfg, **kw)
+    assert LAUNCHES["segsum"] == schedule.horizon
+    want = simulate_fleet(sessions, table, prof, cfg, device="cpu", **kw)
+    np.testing.assert_array_equal(got.splits, want.splits)
+    np.testing.assert_array_equal(got.active, want.active)
+    np.testing.assert_array_equal(got.lifecycle.admit_latency,
+                                  want.lifecycle.admit_latency)
